@@ -7,13 +7,22 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
   0. device: a CUDA device must be present; prints the card's name and power
      limit (nvidia-smi) and builds the CUDA kernels and the host library.
   1. kernels: each CUDA kernel against its plain PyTorch version on the same
-     CUDA tensors and against its host C++ twin, exact, at the main path's
-     shapes; kernel and plain times are medians of CUDA-event timings.
+     CUDA tensors (and against its host C++ twin or numpy oracle), exact, at
+     the main path's shapes; kernel times are medians of CUDA-event timings.
+     The rANS scans take their blocks from the streams of phase 2's archive:
+     a full order-0 block (T = 8192) and a full trans2 block (T = 32768) of
+     the diff text, and a dzt literal block (A = 4, k = 4) of the consensus.
   2. end to end: compress(device="cuda") + decompress of a 5,000,000-read x
      100 bp dataset (bench.py make_dataset, default profile, seed 7), exact
-     roundtrip; every kernel must have launched during compress.
+     roundtrip; every kernel of the path must have launched during compress.
+     Then the same with codec="device" (the on-device entropy coders): exact
+     roundtrip, rANS encode launched during compress and rANS decode during
+     decompress.
   3. same bytes: at 100,000 reads, device="cuda" and device="cpu" write
-     identical archives.
+     identical archives, with codec="auto" and with codec="device".
+  4. realign verify: on the 100,000-read set, the popcount verify kernel
+     recomputes the mismatch count of every placement the host realign probe
+     chose at the first threshold, and must agree with it.
 The line before the last is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -34,11 +43,14 @@ import torch
 
 from bench import make_dataset
 from minicom_tpu_torch import CompressorConfig, compressor, native
-from minicom_tpu_torch.io import fastq
-from minicom_tpu_torch.ops import consensus, cuda, sketch
-from minicom_tpu_torch.ops.pack import codes_to_ascii
+from minicom_tpu_torch.entropy import device_ctx_rans, device_rans
+from minicom_tpu_torch.io import container, fastq
+from minicom_tpu_torch.ops import consensus, cuda, rans, sketch, verify
+from minicom_tpu_torch.ops.pack import (codes_to_ascii, pack_2bit_words,
+                                        popcount_u32, revcomp_codes)
 from minicom_tpu_torch.pipeline import classify, cluster
-from minicom_tpu_torch.pipeline.merge import _batch_m, _rows_tile
+from minicom_tpu_torch.pipeline.merge import (_batch_m, _rows_tile,
+                                              merge_contigs)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_READS = 5_000_000
@@ -60,6 +72,18 @@ def _ms(fn, reps: int) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def _once_ms(fn):
+    """(fn(), its milliseconds) from one call bracketed by CUDA events: for
+    the plain rANS scans, whose Python loops take seconds a call."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def _equal(name, got, want) -> int:
@@ -197,9 +221,162 @@ def phase1_consensus(dev, fastq_path, report):
         plain_ms=plain_ms)
 
 
+def phase1_verify(dev, report):
+    rng = np.random.default_rng(4)
+    N, W = 1 << 20, 7
+    a = rng.integers(0, 2**32, (N, W), dtype=np.uint32)
+    b = a ^ (rng.random((N, W)) < 0.02).astype(np.uint32) << np.uint32(
+        2 * rng.integers(0, 16, (N, W)).astype(np.uint32))
+    da, db = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got = verify.popcount_verify(da, db)
+    err = _equal("verify vs plain", got.cpu(),
+                 verify._verify_plain(da, db).cpu())
+    _equal("verify vs numpy", got.cpu(),
+           popcount_u32(a ^ b).sum(axis=1).astype(np.int32))
+    out = torch.empty(N, dtype=torch.int32, device=dev)
+    ms = _ms(lambda: cuda.launch("mtc_popcount_verify", da, db, N, W, out),
+             20)
+    plain_ms = _ms(lambda: verify._verify_plain(da, db), 5)
+    print(f"[1] popcount_verify {N} x {W} words: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; equal to plain and numpy")
+    report["mtc_popcount_verify"] = dict(
+        name="popcount_verify", route="cuda",
+        source="minicom_tpu_torch/csrc/verify.cu",
+        replaces="minicom_tpu/ops/pallas_verify.py:49", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms)
+
+
+def _rans_block(dev, label, want, chunked, f, c, valid, tables, A, C):
+    """Kernel vs plain encode and decode of one block; the decoded symbols
+    must also give back ``want`` (lanes own chunks of it when ``chunked``,
+    else every 128th symbol). Returns (encode err, decode err, encode ms,
+    plain encode ms, decode ms, plain decode ms)."""
+    T = f.shape[0]
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            for x in (f, c, valid)]
+    enc = rans.rans_encode(*args)
+    penc, penc_ms = _once_ms(lambda: rans._encode_plain(*args))
+    enc_err = max(_equal(f"{label} encode {nm} vs plain", g.cpu(), p.cpu())
+                  for nm, g, p in zip(("states", "words", "counts"), enc,
+                                      penc))
+    states, words, counts = enc
+    W = device_rans._wtier(max(1, int(counts.max().item())))
+    dargs = [states, words[:W].contiguous(), args[2],
+             *(torch.from_numpy(t).to(dev) for t in tables)]
+    syms = rans.rans_decode(*dargs, A, C)
+    psyms, pdec_ms = _once_ms(lambda: rans._decode_plain(*dargs, A, C))
+    dec_err = _equal(f"{label} decode vs plain", syms.cpu(), psyms.cpu())
+    grid = syms.cpu().numpy()
+    got = (grid.T if chunked else grid).reshape(-1)[:len(want)]
+    if not np.array_equal(got, want):
+        raise AssertionError(f"{label}: decode does not give back the block")
+    scratch = (torch.empty(128, dtype=torch.uint32, device=dev),
+               torch.empty((T, 128), dtype=torch.uint16, device=dev),
+               torch.empty(128, dtype=torch.int32, device=dev))
+    enc_ms = _ms(lambda: cuda.launch("mtc_rans_encode", *args, T, *scratch),
+                 10)
+    out = torch.empty((T, 128), dtype=torch.uint8, device=dev)
+    dec_ms = _ms(lambda: cuda.launch("mtc_rans_decode", dargs[0], dargs[1],
+                                     W, args[2], T, *dargs[3:], A, C, out),
+                 10)
+    print(f"[1] rans {label} (T={T}, A={A}, C={C}): encode kernel "
+          f"{enc_ms:.3f} ms, plain {penc_ms:.3f} ms; decode kernel "
+          f"{dec_ms:.3f} ms, plain {pdec_ms:.3f} ms; equal to plain, "
+          "roundtrip exact")
+    return enc_err, dec_err, enc_ms, penc_ms, dec_ms, pdec_ms
+
+
+def phase1_rans(dev, streams, report):
+    """The rANS scans on blocks of the 5M run's own streams; the JSON
+    line's times are the sums over the three blocks."""
+    diff = np.frombuffer(streams["diff"], np.uint8)
+    if len(diff) < 1 << 22:
+        raise AssertionError(f"diff stream of {len(diff)} B: want a full "
+                             "trans2 block")
+    blocks = []
+    syms = diff[:device_rans.BLOCK]
+    freq_q, f, c, valid = device_rans._encode_inputs(syms)
+    blocks.append(("order-0 diff", syms, False, f, c, valid,
+                   device_rans._tables(freq_q), 256, 1))
+    tok, nt, lit = native.dz_encode_parts(streams["ref"])
+    lit_codes = np.stack([(np.frombuffer(lit, np.uint8) >> (2 * i)) & 3
+                          for i in range(4)], axis=-1).reshape(-1)
+    for label, buf, k in (("trans2 diff", diff[:device_ctx_rans.BLOCK], 2),
+                          ("dzt literals",
+                           lit_codes[:device_ctx_rans.BLOCK], 4)):
+        alphabet = np.unique(buf)
+        remap = np.zeros(256, np.uint8)
+        remap[alphabet] = np.arange(len(alphabet), dtype=np.uint8)
+        syms = remap[buf]
+        A = len(alphabet)
+        k, freq, f, c, valid = device_ctx_rans._encode_inputs(syms, A, k)
+        blocks.append((label, syms, True, f, c, valid,
+                       device_ctx_rans._decode_tables(freq), A, A ** k))
+    res = [_rans_block(dev, *blk) for blk in blocks]
+    enc_err, dec_err = (max(r[i] for r in res) for i in (0, 1))
+    enc_ms, penc_ms, dec_ms, pdec_ms = (sum(r[i] for r in res)
+                                        for i in range(2, 6))
+    report["mtc_rans_encode"] = dict(
+        name="rans_encode", route="cuda",
+        source="minicom_tpu_torch/csrc/rans.cu",
+        replaces="minicom_tpu/entropy/device_rans.py:79",
+        max_abs_err=enc_err, ms=enc_ms, plain_ms=penc_ms)
+    report["mtc_rans_decode"] = dict(
+        name="rans_decode", route="cuda",
+        source="minicom_tpu_torch/csrc/rans.cu",
+        replaces="minicom_tpu/entropy/device_rans.py:123",
+        max_abs_err=dec_err, ms=dec_ms, plain_ms=pdec_ms)
+
+
 def _sorted_rows(ascii_rows):
     rows = np.ascontiguousarray(ascii_rows)
     return np.sort(rows.view(f"S{rows.shape[1]}").ravel())
+
+
+class _LaunchTimer:
+    """Counts set to 0 on entry and read on exit, and CUDA events around
+    every kernel launch in between (the launch itself, and its count, are
+    unchanged): which kernels a run launched, and their device seconds."""
+
+    def __enter__(self):
+        self.events = []
+        self._launch = cuda.launch
+
+        def timed_launch(name, *args):
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            self._launch(name, *args)
+            t1.record()
+            self.events.append((name, t0, t1))
+
+        cuda.launches.clear()
+        cuda.launch = timed_launch
+        return self
+
+    def __exit__(self, *exc):
+        cuda.launch = self._launch
+        self.launched = dict(cuda.launches)
+
+    def seconds(self) -> dict:
+        torch.cuda.synchronize()
+        out = {}
+        for name, e0, e1 in self.events:
+            out[name] = out.get(name, 0.0) + e0.elapsed_time(e1) / 1e3
+        return out
+
+
+def _require(launched, names, where):
+    missing = [k for k in names if launched.get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"{where} never launched {missing}")
+
+
+def _check_roundtrip(dec, want, n, L=100):
+    got = np.fromfile(dec, np.uint8)
+    if got.size != n * (L + 1):
+        raise AssertionError(f"decoded {got.size} bytes")
+    if not np.array_equal(_sorted_rows(got.reshape(n, L + 1)[:, :L]), want):
+        raise AssertionError("roundtrip is not exact")
 
 
 def phase2_end_to_end(dev, tmp):
@@ -209,45 +386,19 @@ def phase2_end_to_end(dev, tmp):
     make_dataset(fq, N_READS)
     print(f"[2] dataset {N_READS} reads x 100 bp generated in "
           f"{time.perf_counter() - t0:.1f} s")
-    # CUDA events around every kernel launch of the run give the kernels'
-    # device seconds (the launch itself, and its count, are unchanged)
-    events = []
-    launch = cuda.launch
-
-    def timed_launch(name, *args):
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        launch(name, *args)
-        t1.record()
-        events.append((name, t0, t1))
-
-    cuda.launches.clear()
     torch.cuda.reset_peak_memory_stats()
-    cuda.launch = timed_launch
-    try:
+    with _LaunchTimer() as lt:
         t0 = time.perf_counter()
         summary = compressor.compress(fq, arc, device=dev)
         enc_s = time.perf_counter() - t0
-    finally:
-        cuda.launch = launch
-    launched = dict(cuda.launches)
-    torch.cuda.synchronize()
-    kernel_s = {}
-    for name, e0, e1 in events:
-        kernel_s[name] = kernel_s.get(name, 0.0) + e0.elapsed_time(e1) / 1e3
+    kernel_s = lt.seconds()
     peak_dev = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
-    dsum = compressor.decompress(arc, dec)
+    dsum = compressor.decompress(arc, dec, device=dev)
     dec_s = time.perf_counter() - t0
 
     want = _sorted_rows(codes_to_ascii(fastq.read_fastq_store(fq)))
-    L = 100
-    got = np.fromfile(dec, np.uint8)
-    if got.size != N_READS * (L + 1):
-        raise AssertionError(f"decoded {got.size} bytes")
-    if not np.array_equal(_sorted_rows(got.reshape(N_READS, L + 1)[:, :L]),
-                          want):
-        raise AssertionError("roundtrip is not exact")
+    _check_roundtrip(dec, want, N_READS)
     mb = summary["input_bytes"] / 1e6
     sub = {k: v for k, v in summary.items()
            if k.endswith("_s") and isinstance(v, float)}
@@ -265,26 +416,93 @@ def phase2_end_to_end(dev, tmp):
                                  "clusters_merged", "singletons_final",
                                  "merge_probe_drops", "merge_rank_saturated")}))
     print("[2] decode stages s: " + json.dumps(dsum["timings_s"]))
-    print("[2] kernel launches during compress: " + json.dumps(launched))
+    print("[2] kernel launches during compress: " + json.dumps(lt.launched))
     print(f"[2] kernel device seconds during compress: "
           f"{json.dumps(kernel_s)}; {sum(kernel_s.values()) / enc_s:.6f} of "
           "the encode wall")
-    missing = [k for k in ("mtc_sketch_reads", "mtc_sketch_windowed",
-                           "mtc_consensus_vote") if launched.get(k, 0) < 1]
-    if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    return launched
+    return fq, arc, want, lt.launched, summary["archive_bytes"]
+
+
+def phase2_device_codecs(dev, tmp, fq, want, auto_bytes):
+    """codec="device" on the same dataset: the entropy stage on the card."""
+    arc, dec = (os.path.join(tmp, f) for f in ("dev.mtc", "dev.reads"))
+    with _LaunchTimer() as enc:
+        t0 = time.perf_counter()
+        summary = compressor.compress(fq, arc, CompressorConfig(codec="device"),
+                                      device=dev)
+        enc_s = time.perf_counter() - t0
+    enc_k = enc.seconds()
+    with _LaunchTimer() as dec_lt:
+        t0 = time.perf_counter()
+        dsum = compressor.decompress(arc, dec, device=dev)
+        dec_s = time.perf_counter() - t0
+    dec_k = dec_lt.seconds()
+    _check_roundtrip(dec, want, N_READS)
+    mb = summary["input_bytes"] / 1e6
+    nb = summary["archive_bytes"]
+    print(f"[2d] codec=device roundtrip exact; encode {enc_s:.2f} s = "
+          f"{mb / enc_s:.3f} MB/s, decode {dec_s:.2f} s = {mb / dec_s:.3f} "
+          f"MB/s, archive {nb} B (ratio {summary['input_bytes'] / nb:.3f}; "
+          f"{nb / auto_bytes:.6f} x the codec=auto archive's {auto_bytes} B)")
+    print("[2d] streams {name: [codec, raw B, coded B]}: " + json.dumps(
+        {e["name"]: [e["codec"], e["rlen"], e["clen"]]
+         for e in container.read_header(arc)["streams"]}))
+    print("[2d] encode stages s: " + json.dumps(summary["timings_s"]))
+    print("[2d] decode stages s: " + json.dumps(dsum["timings_s"]))
+    print("[2d] kernel launches: compress " + json.dumps(enc.launched)
+          + ", decompress " + json.dumps(dec_lt.launched))
+    print("[2d] kernel device seconds: compress " + json.dumps(enc_k)
+          + ", decompress " + json.dumps(dec_k))
+    return enc.launched, dec_lt.launched
 
 
 def phase3_same_bytes(dev, fq, tmp):
-    a, b = os.path.join(tmp, "cuda.mtc"), os.path.join(tmp, "cpu.mtc")
-    compressor.compress(fq, a, device=dev)
-    compressor.compress(fq, b, device="cpu")
-    with open(a, "rb") as fa, open(b, "rb") as fb:
-        if fa.read() != fb.read():
-            raise AssertionError("cuda and cpu archives differ")
-    print(f"[3] {N_SAME_BYTES} reads: cuda and cpu archives identical "
-          f"({os.path.getsize(a)} B)")
+    for codec in ("auto", "device"):
+        a, b = (os.path.join(tmp, f"{codec}_{d}.mtc") for d in ("cuda", "cpu"))
+        cfg = CompressorConfig(codec=codec)
+        compressor.compress(fq, a, cfg, device=dev)
+        compressor.compress(fq, b, cfg, device="cpu")
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"codec={codec}: cuda and cpu archives "
+                                     "differ")
+        print(f"[3] {N_SAME_BYTES} reads, codec={codec}: cuda and cpu "
+              f"archives identical ({os.path.getsize(a)} B)")
+
+
+def phase4_verify_path(dev, fq):
+    """The popcount verify of every placement that the host realign probe
+    picks at the first threshold of the ladder, on the cluster and merge
+    output of the 100,000-read set."""
+    codes = fastq.read_fastq_store(fq)
+    L = codes.shape[1]
+    cfg = CompressorConfig().resolve(L)
+    cls = classify.classify(codes, cfg)
+    codes_dev = torch.from_numpy(cls.codes_sub).to(dev)
+    cset, sg = cluster.cluster_rounds(codes_dev, cls.pool, cfg)
+    rcfg = CompressorConfig().resolve(L, n_singletons=len(sg))
+    cset = merge_contigs(cset, rcfg, dev, {}, codes_dev=codes_dev)
+    sgc = cls.codes_sub[sg]
+    thr = rcfg.diff_threshold
+    sg_i, cl, off, dirs, pop = native.realign_probe(
+        cset.ref_flat, cset.ref_ptr, sgc,
+        np.array([s for s, _ in rcfg.dict_ranges()], np.int32),
+        rcfg.dict_seg_len, thr, rcfg.max_search, rc_skip_cost=thr <= 24)
+    if len(sg_i) == 0:
+        raise AssertionError("the realign probe placed no read")
+    start = cset.ref_ptr[cl].astype(np.int64) + off
+    win = cset.ref_flat[start[:, None] + np.arange(L)]
+    win = np.where((dirs == 1)[:, None], revcomp_codes(win), win)
+    a = torch.from_numpy(pack_2bit_words(win)).to(dev)
+    b = torch.from_numpy(pack_2bit_words(sgc[sg_i])).to(dev)
+    with _LaunchTimer() as lt:
+        got = verify.popcount_verify(a, b)
+    _equal("verify path vs the realign probe", got.cpu(),
+           pop.astype(np.int32))
+    print(f"[4] realign verify: {len(sg_i)} placements of {len(sg)} "
+          f"singletons at threshold {thr}; the kernel's mismatch counts "
+          "equal the host probe's")
+    return lt.launched
 
 
 def main() -> int:
@@ -311,11 +529,24 @@ def main() -> int:
         phase1_sketch_reads(dev, report)
         phase1_sketch_windowed(dev, report)
         phase1_consensus(dev, fq_small, report)
-        launched = phase2_end_to_end(dev, tmp)
+        phase1_verify(dev, report)
+        fq, arc, want, launched, auto_bytes = phase2_end_to_end(dev, tmp)
+        _require(launched, ("mtc_sketch_reads", "mtc_sketch_windowed",
+                            "mtc_consensus_vote"), "compress")
+        phase1_rans(dev, container.read_container(arc)[1], report)
+        enc, dec = phase2_device_codecs(dev, tmp, fq, want, auto_bytes)
+        _require(enc, ("mtc_rans_encode",), "codec=device compress")
+        _require(dec, ("mtc_rans_decode",), "codec=device decompress")
         phase3_same_bytes(dev, fq_small, tmp)
+        ver = phase4_verify_path(dev, fq_small)
+        _require(ver, ("mtc_popcount_verify",), "the realign verify path")
+    launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
+                    mtc_rans_decode=dec["mtc_rans_decode"],
+                    mtc_popcount_verify=ver["mtc_popcount_verify"])
     kernels = [dict(report[k], launches=launched[k]) for k in
                ("mtc_sketch_reads", "mtc_sketch_windowed",
-                "mtc_consensus_vote")]
+                "mtc_consensus_vote", "mtc_rans_encode", "mtc_rans_decode",
+                "mtc_popcount_verify")]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@
 
 The flags are the JAX package's (-t -k -e -m -w -s -S -E -g -R, --codec,
 --no-merge-revote, --merge-rank-cap, --merge-probe-cap), plus --device
-(default cuda; cpu runs the kernels' plain PyTorch versions). Paired-end
-input (-1/-2), -p, --checkpoint and the on-device codecs raise
+(default cuda; cpu runs the kernels' plain PyTorch versions), which -d uses
+for the streams of the on-device codecs (--codec device, trans, trans1,
+trans2, dzt). Paired-end input (-1/-2), -p and --checkpoint raise
 NotImplementedError.
 """
 
@@ -46,7 +47,7 @@ def build_parser() -> argparse.ArgumentParser:
                             "dz", "trans", "trans1", "trans2", "dzt",
                             "bz2", "zlib", "store"],
                    help="entropy backend per stream (auto = best host codec "
-                        "per stream)")
+                        "per stream, device = best on-device codec)")
     p.add_argument("--no-merge-revote", action="store_true",
                    help="splice merged contigs instead of re-voting all "
                         "members (faster, slightly larger archives)")
@@ -79,7 +80,8 @@ def main(argv=None) -> int:
 
     if args.d:
         out = args.o or os.path.splitext(args.d)[0] + "_dec.reads"
-        summary = compressor.decompress(args.d, out, args.O)
+        summary = compressor.decompress(args.d, out, args.O,
+                                        device=args.device)
         if args.stats:
             print(json.dumps(summary))
         print(f"Decompressed to {out}")

@@ -5,11 +5,14 @@ compress():  load -> classify -> upload the read store to ``device`` ->
              cluster rounds -> contig merge -> realignment ladder ->
              serialize -> .mtc container.
 decompress(): container -> streams -> unordered assembly, streamed to disk
-             by a writer thread. Host work only.
+             by a writer thread. Host work, apart from the streams that an
+             on-device codec coded.
 
 On ``device="cuda"`` the device stages launch the CUDA kernels; on
 ``device="cpu"`` they run the kernels' plain PyTorch versions. Both write the
-same archive, byte for byte, as ``minicom_tpu.compressor.compress``.
+same archive, byte for byte, as ``minicom_tpu.compressor.compress``. With
+``codec="device"`` (or one of the on-device codecs) the entropy stage runs
+on ``device`` too.
 """
 
 from __future__ import annotations
@@ -41,9 +44,6 @@ def _check_in_slice(cfg: CompressorConfig, reads_path2) -> None:
         raise NotImplementedError("order-preserving mode is not ported yet")
     if cfg.checkpoint_dir:
         raise NotImplementedError("stage checkpoints are not ported yet")
-    if is_device_codec(cfg.codec):
-        raise NotImplementedError(
-            f"codec {cfg.codec!r} (on-device entropy) is not ported yet")
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError("multi-process runs are not ported yet")
@@ -120,7 +120,8 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
         meta, streams = encode_mod.serialize(inp)
 
     with stats.stage("entropy"):
-        total = container.write_container(out_path, meta, streams, rcfg.codec)
+        total = container.write_container(out_path, meta, streams, rcfg.codec,
+                                          dev)
     stats.set("archive_bytes", total)
     stats.set("input_bytes", int(n_seq) * (L + 1))
     return stats.summary()
@@ -128,10 +129,11 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
 
 def decompress(archive_path: str, out_path: str,
                out_path2: str | None = None,
-               stats: StageStats | None = None) -> dict:
+               stats: StageStats | None = None, device="cuda") -> dict:
     """Decode a single-end unordered .mtc archive to ``out_path`` (one
-    sequence per line, canonical order). ``out_path2`` is for paired-end
-    archives, which are not ported yet."""
+    sequence per line, canonical order). ``device`` decodes the streams of
+    on-device codecs and is needed only when the archive has such streams.
+    ``out_path2`` is for paired-end archives, which are not ported yet."""
     stats = stats or StageStats()
     with stats.stage("read_container"):   # archive read + entropy decode
         header = container.read_header(archive_path)
@@ -139,8 +141,12 @@ def decompress(archive_path: str, out_path: str,
             raise NotImplementedError(
                 "decoding paired-end or order-preserving archives is not "
                 "ported yet")
+        dev = None
+        if any(is_device_codec(e["codec"]) for e in header["streams"]):
+            dev = _device(device)
         pre = decode_mod.Prealloc(header)
-        meta, streams = container.read_container(archive_path, stats.counters)
+        meta, streams = container.read_container(archive_path, stats.counters,
+                                                 dev)
 
     # finished row ranges stream to a writer thread while later rows still
     # decode

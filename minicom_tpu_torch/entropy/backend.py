@@ -4,13 +4,19 @@
 * "o1rc" / "o2rc" — native order-1 / order-2 adaptive range coders,
 * "dnarc" — native 2-bit base coder with a 16-base rolling-hash context,
 * "dz"    — native base-level LZ front end + blocked dnarc literals,
-* "bz2" / "zlib" / "store" — stdlib.
+* "bz2" / "zlib" / "store" — stdlib;
+
+and the on-device codecs, whose scans run on the ``device`` argument (CUDA
+kernels on a CUDA device, their plain PyTorch versions on "cpu"):
+
+* "trans" — order-0 interleaved rANS (``entropy/device_rans.py``),
+* "trans1" / "trans2" — order-1 / order-2 context rANS over the used-byte
+  alphabet (``entropy/device_ctx_rans.py``),
+* "dzt"   — the dz matcher, its tokens and literals coded by the context
+  rANS.
 
 Any codec may be prefixed "pK:" (K in 2, 4, 8): the stream is an array of
 K-byte little-endian records, deinterleaved into K byte planes before coding.
-
-The on-device codecs of the JAX package ("trans", "trans1", "trans2",
-"dzt") are not ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import zlib
 import numpy as np
 
 from minicom_tpu_torch import native
+from minicom_tpu_torch.entropy import device_ctx_rans, device_rans
 
 # Encode with xz -9e and an 8 MiB dictionary, as the JAX package does (the
 # bytes must match). Decode with a 64 MiB dictionary: a raw LZMA2 decoder
@@ -60,12 +67,14 @@ def is_device_codec(name: str) -> bool:
     return name == "device" or _split(name)[1] in DEVICE_CODECS
 
 
-def _not_ported(base: str):
-    return NotImplementedError(
-        f"codec {base!r} (on-device entropy coding) is not ported yet")
+def _need(device, base: str):
+    if device is None:
+        raise ValueError(f"codec {base!r} codes on a device: pass device=")
+    return device
 
 
-def compress(name: str, data: bytes) -> bytes:
+def compress(name: str, data: bytes, device=None) -> bytes:
+    """``device`` is used by the on-device codecs only."""
     stride, base = _split(name)
     data = _deinterleave(data, stride)
     if base == "store":
@@ -80,12 +89,17 @@ def compress(name: str, data: bytes) -> bytes:
         return native.dz_encode(data)
     if base in _RC_FAMILIES:
         return native.rc_encode(base, data)
-    if base in DEVICE_CODECS:
-        raise _not_ported(base)
+    if base == "trans":
+        return device_rans.compress(data, _need(device, base))
+    if base in ("trans1", "trans2"):
+        return device_ctx_rans.compress(data, int(base[-1]),
+                                        _need(device, base))
+    if base == "dzt":
+        return device_ctx_rans.compress_dz(data, _need(device, base))
     raise ValueError(f"unknown codec {name!r}")
 
 
-def decompress(name: str, data: bytes, raw_len: int) -> bytes:
+def decompress(name: str, data: bytes, raw_len: int, device=None) -> bytes:
     stride, base = _split(name)
     if base == "store":
         out = data
@@ -100,18 +114,23 @@ def decompress(name: str, data: bytes, raw_len: int) -> bytes:
         out = native.dz_decode(data, raw_len)
     elif base in _RC_FAMILIES:
         out = native.rc_decode(base, data, raw_len)
-    elif base in DEVICE_CODECS:
-        raise _not_ported(base)
+    elif base == "trans":
+        out = device_rans.decompress(data, _need(device, base))
+    elif base in ("trans1", "trans2"):
+        out = device_ctx_rans.decompress(data, _need(device, base))
+    elif base == "dzt":
+        out = device_ctx_rans.decompress_dz(data, _need(device, base))
     else:
         raise ValueError(f"unknown codec {name!r}")
     return _interleave(out, stride)
 
 
-def best_of(candidates: list[str], data: bytes) -> tuple[str, bytes]:
+def best_of(candidates: list[str], data: bytes,
+            device=None) -> tuple[str, bytes]:
     """The smallest encoding among ``candidates`` (first wins ties)."""
     best = None
     for name in candidates:
-        blob = compress(name, data)
+        blob = compress(name, data, device)
         if best is None or len(blob) < len(best[1]):
             best = (name, blob)
     return best

@@ -1,0 +1,283 @@
+"""Order-k context rANS on the device (codecs "trans1", "trans2") and the dz
+LZ transform with its residual coded on the device (codec "dzt"). The format
+is the JAX package's ``minicom_tpu/entropy/device_ctx_rans.py``, byte for
+byte.
+
+Model: static per-block tables conditioned on the previous k symbols over a
+remapped alphabet (the used byte values; A symbols). The requested k
+degrades until the dense table A^k * A * 2 bytes fits kTableCap; the k used
+ships in the header. Lanes own contiguous chunks (lane l codes symbols
+[l*T, (l+1)*T)), so each lane's context is the true previous-k window; the
+context resets to symbol 0 at chunk starts. The host builds the tables
+(float64 numpy, as the reference does) and gathers each slot's frequency
+and cumulative frequency; the scans run in ``ops/rans.py``.
+
+Layout per block (little-endian):
+  u8 version=2  u8 log2(LANES)  u8 k  u8 pad
+  u16 M (=4096) u16 A           u64 n_symbols
+  u8  alphabet[A]               (byte value of each symbol id)
+  u16 freq[A^k, A]              (quantized to sum M per used context)
+  u32 state[LANES]  u32 words_per_lane[LANES]
+  u16 lane streams, concatenated in lane order
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from minicom_tpu_torch import native
+from minicom_tpu_torch.entropy.device_rans import (_lane_bytes, _lane_words,
+                                                  _to)
+from minicom_tpu_torch.ops.rans import LANES, M, rans_decode, rans_encode
+
+_VERSION = 2
+BLOCK = 1 << 22            # symbols per block
+kTableCap = 128 << 10      # max dense freq-table bytes per block
+
+
+def _feasible_k(A: int, k: int) -> int:
+    while k > 0 and (A ** k) * A * 2 > kTableCap:
+        k -= 1
+    return k
+
+
+def _quantize_rows(cnt: np.ndarray) -> np.ndarray:
+    """[C, A] counts -> [C, A] uint16 frequencies, each USED row summing to
+    exactly M with every present symbol >= 1 (vectorized largest-remainder;
+    unused rows stay zero — decode never gathers them)."""
+    C, A = cnt.shape
+    tot = cnt.sum(axis=1, keepdims=True)
+    used = tot[:, 0] > 0
+    q = np.zeros((C, A), np.int64)
+    if not used.any():
+        return q.astype(np.uint16)
+    cu = cnt[used].astype(np.float64)
+    tu = cu.sum(axis=1, keepdims=True)
+    scaled = cu * M / tu
+    qu = np.floor(scaled).astype(np.int64)
+    qu[(cu > 0) & (qu == 0)] = 1
+    # hand the per-row deficit to the largest remainders (ties: lower symbol)
+    deficit = M - qu.sum(axis=1)
+    rem = scaled - np.floor(scaled)
+    rem[cu == 0] = -1.0
+    order = np.argsort(-rem, axis=1, kind="stable")
+    ranks = np.empty_like(order)
+    np.put_along_axis(ranks, order, np.broadcast_to(np.arange(A),
+                                                    order.shape).copy(), 1)
+    qu += ranks < deficit[:, None]
+    # rows can also overshoot (many forced 1s): take from largest entries
+    for _ in range(2):
+        over = qu.sum(axis=1) - M
+        bad = over > 0
+        if not bad.any():
+            break
+        rows = np.flatnonzero(bad)
+        for r in rows:     # rare: rows with > M/2 forced-present symbols
+            need = int(over[r])
+            while need > 0:
+                i = int(np.argmax(qu[r]))
+                take = min(need, int(qu[r, i]) - 1)
+                if take <= 0:
+                    raise ValueError("cannot quantize: too many symbols")
+                qu[r, i] -= take
+                need -= take
+    q[used] = qu
+    return q.astype(np.uint16)
+
+
+def _ctx_grid(sym_grid: np.ndarray, k: int, A: int) -> np.ndarray:
+    """[T, LANES] symbol ids -> [T, LANES] int32 contexts (previous k
+    symbols of the SAME lane chunk, oldest in the highest digit; chunk
+    starts pad with symbol 0)."""
+    T = sym_grid.shape[0]
+    ctx = np.zeros((T, LANES), np.int64)
+    for j in range(1, k + 1):
+        prev = np.zeros((T, LANES), np.int64)
+        if T > j:
+            prev[j:] = sym_grid[:-j]
+        ctx += prev * (A ** (j - 1))
+    return ctx.astype(np.int32)
+
+
+def _tier_chunk(T: int) -> int:
+    """Round a lane's chunk length up to a pow2 tier (>= 256): the tier
+    decides which symbols each lane owns, so it is part of the format."""
+    t = 256
+    while t < T:
+        t <<= 1
+    return t
+
+
+def _encode_inputs(syms: np.ndarray, A: int, k: int):
+    """One block's order, tables and [T, LANES] slot grids (chunked lanes):
+    (k, freq [A^k, A] u16, f, c, valid)."""
+    n = len(syms)
+    k = _feasible_k(A, k)
+    C = A ** k
+    T = _tier_chunk(max(1, -(-n // LANES)))
+    pad = T * LANES - n
+    if pad:
+        syms = np.concatenate([syms, np.zeros(pad, syms.dtype)])
+    grid = syms.reshape(LANES, T).T.astype(np.int32)    # chunked lanes
+    ctx = _ctx_grid(grid, k, A)
+    valid = np.ascontiguousarray(np.arange(T * LANES).reshape(LANES, T).T < n)
+    flat = ctx.astype(np.int64) * A + grid
+    cnt = np.bincount(flat.reshape(-1)[valid.reshape(-1)],
+                      minlength=C * A).reshape(C, A)
+    freq = _quantize_rows(cnt)
+    cum = np.zeros((C, A), np.int64)
+    cum[:, 1:] = np.cumsum(freq[:, :-1], axis=1)
+    # per-slot gathers on the host (the symbols are known)
+    f_g = freq.reshape(-1)[flat].astype(np.uint32)
+    c_g = cum.reshape(-1)[flat].astype(np.uint32)
+    return k, freq, f_g, c_g, valid
+
+
+def _decode_tables(freq: np.ndarray):
+    """[C, A] quantized rows -> flat (freq u32 [C*A], cum u32 [C*A],
+    slot -> symbol u8 [C*M]); unused rows decode to symbol 0."""
+    C, A = freq.shape
+    counts = freq.astype(np.int64)
+    cum = np.zeros((C, A), np.int64)
+    cum[:, 1:] = np.cumsum(counts[:, :-1], axis=1)
+    slot_sym = np.zeros((C, M), np.uint8)
+    for c in np.flatnonzero(counts.sum(axis=1) > 0):
+        slot_sym[c] = np.repeat(np.arange(A, dtype=np.uint8), counts[c])
+    return (counts.reshape(-1).astype(np.uint32),
+            cum.reshape(-1).astype(np.uint32), slot_sym.reshape(-1))
+
+
+def _encode_block(syms: np.ndarray, A: int, alphabet: np.ndarray, k: int,
+                  device) -> bytes:
+    k, freq, f_g, c_g, valid = _encode_inputs(syms, A, k)
+    states, words, wcounts = (x.cpu().numpy() for x in rans_encode(
+        _to(f_g, device), _to(c_g, device), _to(valid, device)))
+    head = (bytes([_VERSION, LANES.bit_length() - 1, k, 0])
+            + np.array([M, A], "<u2").tobytes()
+            + np.array([len(syms)], "<u8").tobytes()
+            + alphabet.astype(np.uint8).tobytes()
+            + freq.astype("<u2").tobytes()
+            + states.astype("<u4").tobytes()
+            + wcounts.astype("<u4").tobytes())
+    return head + _lane_bytes(words, wcounts)
+
+
+def _decode_block(blob: memoryview, device
+                  ) -> tuple[np.ndarray, np.ndarray, int]:
+    """Returns (symbol ids, alphabet, bytes consumed)."""
+    if blob[0] != _VERSION or (1 << blob[1]) != LANES:
+        raise ValueError("ctx-trans stream: bad block header")
+    k = blob[2]
+    off = 4
+    m, A = np.frombuffer(blob, "<u2", 2, off)
+    off += 4
+    if m != M:
+        raise ValueError(f"ctx-trans stream: table size {m} != {M}")
+    A = int(A)
+    if not 1 <= A <= 256 or _feasible_k(A, k) != k:
+        raise ValueError(f"ctx-trans stream: alphabet {A}, order {k}")
+    C = A ** k
+    n = int(np.frombuffer(blob, "<u8", 1, off)[0]); off += 8
+    alphabet = np.frombuffer(blob, np.uint8, A, off).copy(); off += A
+    freq = np.frombuffer(blob, "<u2", C * A, off).reshape(C, A)
+    off += 2 * C * A
+    rows = freq.sum(axis=1, dtype=np.int64)
+    if ((rows != 0) & (rows != M)).any():
+        raise ValueError("ctx-trans stream: a table row does not sum to M")
+    states = np.frombuffer(blob, "<u4", LANES, off).copy(); off += 4 * LANES
+    wcounts = np.frombuffer(blob, "<u4", LANES, off).astype(np.int64)
+    off += 4 * LANES
+    total_words = int(wcounts.sum())
+    flat = np.frombuffer(blob, "<u2", total_words, off)
+    off += 2 * total_words
+    T = _tier_chunk(max(1, -(-n // LANES)))
+    valid = np.ascontiguousarray(np.arange(T * LANES).reshape(LANES, T).T < n)
+    grid = rans_decode(_to(states.astype(np.uint32), device),
+                       _to(_lane_words(flat, wcounts), device),
+                       _to(valid, device),
+                       *(_to(a, device) for a in _decode_tables(freq)), A, C)
+    out = grid.cpu().numpy().T.reshape(-1)[:n]   # chunked lanes -> stream
+    return out, alphabet, off
+
+
+def compress(data: bytes, k: int, device) -> bytes:
+    """Byte stream -> framed context-rANS blocks (alphabet = used bytes).
+    An empty stream still writes one block."""
+    buf = np.frombuffer(data, np.uint8)
+    alphabet = np.unique(buf) if len(buf) else np.zeros(1, np.uint8)
+    remap = np.zeros(256, np.uint8)
+    remap[alphabet] = np.arange(len(alphabet), dtype=np.uint8)
+    syms = remap[buf]
+    parts = [np.array([len(buf)], "<u8").tobytes()]
+    for i in range(0, max(len(syms), 1), BLOCK):
+        parts.append(_encode_block(syms[i: i + BLOCK], len(alphabet),
+                                   alphabet, k, device))
+    return b"".join(parts)
+
+
+def decompress(blob: bytes, device) -> bytes:
+    n = int(np.frombuffer(blob, "<u8", 1)[0])
+    off = 8
+    out = []
+    got = 0
+    mv = memoryview(blob)
+    while got < n:
+        syms, alphabet, used = _decode_block(mv[off:], device)
+        out.append(alphabet[syms])
+        got += len(syms)
+        off += used
+    if got != n:
+        raise ValueError(
+            f"ctx-trans stream: decoded {got} symbols, header says {n}")
+    return b"".join(s.tobytes() for s in out)
+
+
+# ---- dzt: dz LZ transform + on-device entropy ------------------------------
+#
+# The dz matcher (native dnalz.cpp) strips the long forward and reverse-
+# complement repeats; both residual streams then go through the context
+# rANS: token byte planes with order-1 contexts, literal bases with order-4.
+#
+# Layout: u8 'Z' u8 version=1 | u64 raw_len | u32 n_tokens | u64 n_lit_bytes
+#         u64 clen_tok | tok ctx-rANS blob | lit ctx-rANS blob (rest)
+
+_DZ_HEAD = 30
+
+
+def compress_dz(data: bytes, device) -> bytes:
+    tok, nt, lit_packed = native.dz_encode_parts(data)
+    tok_blob = compress(tok, 1, device)
+    lit_codes = np.stack([(np.frombuffer(lit_packed, np.uint8)
+                           >> (2 * i)) & 3 for i in range(4)],
+                         axis=-1).reshape(-1).astype(np.uint8)
+    lit_blob = compress(lit_codes.tobytes(), 4, device)
+    head = (b"Z\x01" + np.array([len(data)], "<u8").tobytes()
+            + np.array([nt], "<u4").tobytes()
+            + np.array([len(lit_packed)], "<u8").tobytes()
+            + np.array([len(tok_blob)], "<u8").tobytes())
+    return head + tok_blob + lit_blob
+
+
+def decompress_dz(blob: bytes, device) -> bytes:
+    """Both residual planes are checked against the header before the
+    native decoder reads them (it reads 12 * n_tokens token bytes)."""
+    if len(blob) < _DZ_HEAD or blob[:2] != b"Z\x01":
+        raise ValueError("dzt stream: bad magic or short header")
+    raw_len = int(np.frombuffer(blob, "<u8", 1, 2)[0])
+    nt = int(np.frombuffer(blob, "<u4", 1, 10)[0])
+    nlit = int(np.frombuffer(blob, "<u8", 1, 14)[0])
+    ctok = int(np.frombuffer(blob, "<u8", 1, 22)[0])
+    if _DZ_HEAD + ctok > len(blob):
+        raise ValueError("dzt stream: token plane past the end")
+    tok = decompress(blob[_DZ_HEAD:_DZ_HEAD + ctok], device)
+    if len(tok) != 12 * nt:
+        raise ValueError(f"dzt stream: {len(tok)} token bytes for {nt} "
+                         "tokens")
+    lit_codes = np.frombuffer(decompress(blob[_DZ_HEAD + ctok:], device),
+                              np.uint8)
+    if len(lit_codes) != nlit * 4:
+        raise ValueError("dzt stream: literal length mismatch")
+    c = lit_codes.reshape(-1, 4).astype(np.uint16)
+    lit_packed = (c[:, 0] | (c[:, 1] << 2) | (c[:, 2] << 4)
+                  | (c[:, 3] << 6)).astype(np.uint8).tobytes()
+    return native.dz_decode_parts(tok, nt, lit_packed, raw_len)

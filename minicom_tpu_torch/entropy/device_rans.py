@@ -1,0 +1,200 @@
+"""Order-0 interleaved rANS on the device (codec "trans"; also "pK:trans"
+through the byte-plane transform of ``entropy/backend.py``). The format is
+the JAX package's ``minicom_tpu/entropy/device_rans.py``, byte for byte.
+
+Static-table rANS over uint8 symbols across LANES independent coder states
+(lane l owns symbols l, l+LANES, l+2*LANES, ...): 32-bit states, 16-bit
+renormalisation, frequencies quantized on the host to M = 2^12 by
+deterministic largest-remainder rounding (float64 numpy; the table ships in
+the block header, so decode needs no float math). The scans run in
+``ops/rans.py``: CUDA kernels on a CUDA ``device``, their plain PyTorch
+versions on ``device="cpu"``.
+
+Stream layout (little-endian): u64 n_symbols, then per block of at most
+BLOCK symbols:
+  u8  version (=1)       u8 log2(LANES)       u16 M (=4096)
+  u64 n_symbols
+  u16 freq[256]          (quantized; absent symbols 0)
+  u32 state[LANES]       (encoder final = decoder initial states)
+  u32 words_per_lane[LANES]
+  u16 lane streams, concatenated in lane order (decode read order)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from minicom_tpu_torch.ops.rans import LANES, M, rans_decode, rans_encode
+
+_VERSION = 1
+# symbols per block; tail blocks round T up to a pow2 tier (the tier fixes
+# which slots are padding, so it is part of the format)
+BLOCK = 1 << 20
+
+
+def quantize_freqs(counts: np.ndarray) -> np.ndarray:
+    """Deterministic largest-remainder quantization of a 256-bin histogram
+    to sum exactly M, every present symbol >= 1."""
+    counts = counts.astype(np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        q = np.zeros(256, np.int64)
+        q[0] = M
+        return q.astype(np.uint16)
+    scaled = counts * M / total
+    q = np.floor(scaled).astype(np.int64)
+    q[(counts > 0) & (q == 0)] = 1
+    diff = M - int(q.sum())
+    if diff > 0:
+        # hand the deficit to the largest remainders (ties: lower symbol)
+        rem = scaled - np.floor(scaled)
+        rem[counts == 0] = -1.0
+        order = np.lexsort((np.arange(256), -rem))
+        q[order[:diff]] += 1
+    else:
+        # take the surplus from the largest entries that stay >= 1
+        for _ in range(-diff):
+            cand = np.flatnonzero(q > 1)
+            q[cand[np.argmax(q[cand])]] -= 1
+    assert q.sum() == M
+    return q.astype(np.uint16)
+
+
+def _tables(freq_q: np.ndarray):
+    """(freq u32, cum u32, slot -> symbol u8 [M]) of a quantized table."""
+    cum = np.concatenate([[0], np.cumsum(freq_q[:-1], dtype=np.int64)])
+    slot_sym = np.repeat(np.arange(256, dtype=np.uint8),
+                         freq_q.astype(np.int64))
+    assert len(slot_sym) == M
+    return freq_q.astype(np.uint32), cum.astype(np.uint32), slot_sym
+
+
+def _tier(T: int) -> int:
+    """Round a tail-block step count up to a pow2 tier (>= 256)."""
+    full = BLOCK // LANES
+    if T >= full:
+        return full
+    t = 256
+    while t < T:
+        t <<= 1
+    return t
+
+
+def _wtier(W: int) -> int:
+    """Round the per-lane word-matrix height up to a pow2 tier (>= 64).
+    Zero rows are safe: decode reads words[min(ptr, W-1)] and the validity
+    mask stops every lane at its own word count."""
+    t = 64
+    while t < W:
+        t <<= 1
+    return t
+
+
+def _to(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _lane_words(flat: np.ndarray, wcounts: np.ndarray) -> np.ndarray:
+    """Concatenated lane streams -> the [W, LANES] word matrix of decode."""
+    W = _wtier(max(1, int(wcounts.max())))
+    words = np.zeros((W, LANES), np.uint16)
+    starts = np.concatenate([[0], np.cumsum(wcounts)])
+    for l in range(LANES):
+        words[: wcounts[l], l] = flat[starts[l]: starts[l + 1]]
+    return words
+
+
+def _lane_bytes(words: np.ndarray, wcounts: np.ndarray) -> bytes:
+    """Encode's [T, LANES] words -> lane streams concatenated in lane
+    order."""
+    return b"".join(words[: wcounts[l], l].astype("<u2").tobytes()
+                    for l in range(LANES))
+
+
+def _encode_inputs(syms: np.ndarray):
+    """One block's quantized table and its [T, LANES] slot grids (strided
+    lanes): (freq_q, f, c, valid)."""
+    n = len(syms)
+    T = _tier(max(1, -(-n // LANES)))
+    pad = T * LANES - n
+    counts = np.bincount(syms, minlength=256)
+    if pad:
+        syms = np.concatenate([syms, np.zeros(pad, np.uint8)])
+    freq_q = quantize_freqs(counts)
+    freq, cum, _ = _tables(freq_q)
+    grid = syms.reshape(T, LANES)
+    valid = (np.arange(T * LANES) < n).reshape(T, LANES)
+    return freq_q, freq[grid], cum[grid], valid
+
+
+def _encode_block(syms: np.ndarray, device) -> bytes:
+    """One rANS block over <= BLOCK uint8 symbols."""
+    freq_q, f, c, valid = _encode_inputs(syms)
+    states, words, wcounts = (x.cpu().numpy() for x in rans_encode(
+        _to(f, device), _to(c, device), _to(valid, device)))
+    head = (bytes([_VERSION, LANES.bit_length() - 1])
+            + np.array([M], "<u2").tobytes()
+            + np.array([len(syms)], "<u8").tobytes()
+            + freq_q.astype("<u2").tobytes()
+            + states.astype("<u4").tobytes()
+            + wcounts.astype("<u4").tobytes())
+    return head + _lane_bytes(words, wcounts)
+
+
+def _decode_block(blob, device) -> tuple[np.ndarray, int]:
+    """Returns (symbols, bytes consumed)."""
+    blob = memoryview(blob)
+    if blob[0] != _VERSION or (1 << blob[1]) != LANES:
+        raise ValueError("trans stream: bad block header "
+                         f"(version {blob[0]}, lanes 2^{blob[1]})")
+    off = 2
+    m = int(np.frombuffer(blob, "<u2", 1, off)[0]); off += 2
+    if m != M:
+        raise ValueError(f"trans stream: table size {m} != {M}")
+    n = int(np.frombuffer(blob, "<u8", 1, off)[0]); off += 8
+    freq_q = np.frombuffer(blob, "<u2", 256, off).copy(); off += 512
+    if int(freq_q.sum(dtype=np.int64)) != M:
+        raise ValueError("trans stream: frequency table does not sum to M")
+    states = np.frombuffer(blob, "<u4", LANES, off).copy(); off += 4 * LANES
+    wcounts = np.frombuffer(blob, "<u4", LANES, off).astype(np.int64)
+    off += 4 * LANES
+    total_words = int(wcounts.sum())
+    flat = np.frombuffer(blob, "<u2", total_words, off)
+    off += 2 * total_words
+    T = _tier(max(1, -(-n // LANES)))
+    if n > T * LANES:
+        raise ValueError(f"trans stream: block of {n} symbols")
+    words = _lane_words(flat, wcounts)
+    freq, cum, slot_sym = _tables(freq_q)
+    valid = (np.arange(T * LANES) < n).reshape(T, LANES)
+    syms = rans_decode(_to(states.astype(np.uint32), device),
+                       _to(words, device), _to(valid, device),
+                       _to(freq, device), _to(cum, device),
+                       _to(slot_sym, device), 256, 1)
+    return syms.cpu().numpy().reshape(-1)[:n], off
+
+
+def compress(data: bytes, device) -> bytes:
+    """Codec entry: uint8 stream -> framed rANS blocks."""
+    syms = np.frombuffer(data, np.uint8)
+    parts = [np.array([len(syms)], "<u8").tobytes()]
+    for i in range(0, len(syms), BLOCK):
+        parts.append(_encode_block(syms[i: i + BLOCK], device))
+    return b"".join(parts)
+
+
+def decompress(blob: bytes, device) -> bytes:
+    n = int(np.frombuffer(blob, "<u8", 1)[0])
+    off = 8
+    out = []
+    got = 0
+    while got < n:
+        syms, used = _decode_block(memoryview(blob)[off:], device)
+        out.append(syms)
+        got += len(syms)
+        off += used
+    if got != n:
+        raise ValueError(
+            f"trans stream: decoded {got} symbols, header says {n}")
+    return b"".join(s.tobytes() for s in out)

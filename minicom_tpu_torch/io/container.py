@@ -61,13 +61,33 @@ _AUTO: Dict[str, list] = {
 }
 _AUTO_DEFAULT = ["xz", "o1rc"]
 
+# codec="device": every stream through the on-device rANS family (dzt = the
+# dz LZ transform with its residual coded on the device); "store" guards
+# the streams the static-table coders lose.
+_DEVICE_AUTO: Dict[str, list] = {
+    "ref": ["dzt"],
+    "single": ["dzt", "trans1"],
+    "diff": ["trans2", "trans1"],
+    "nsingle": ["trans2", "trans1"],
+    "aa": ["trans2", "trans1"],
+    "tt": ["trans2", "trans1"],
+    "nn": ["trans2", "trans1"],
+    "cnt": ["p4:trans1"],
+    "dpos": ["p2:trans1"],
+    "dposx": ["p4:trans1"],
+    "ids": ["p4:trans1"],
+    "peids": ["p4:trans1"],
+}
+
 # Above this raw size, xz -9e trial encodes cost more time than they save
 # bytes; large streams take the range-coder candidates only.
 _TRIAL_MAX = 1 << 19
 
 
-def _auto_candidates(name: str, rlen: int) -> list:
+def _auto_candidates(name: str, rlen: int = 0, table: str = "auto") -> list:
     key = "ids" if name.startswith("ids_") else name
+    if table == "device":
+        return _DEVICE_AUTO.get(key, ["trans1"]) + ["store"]
     cands = _AUTO.get(key, _AUTO_DEFAULT)
     if rlen > _TRIAL_MAX:
         cands = [c for c in cands if not c.endswith("xz")] or cands
@@ -75,15 +95,18 @@ def _auto_candidates(name: str, rlen: int) -> list:
 
 
 def write_container(path: str, meta: dict, streams: Dict[str, bytes],
-                    codec: str) -> int:
-    """Compress and write streams; returns total archive bytes."""
+                    codec: str, device=None) -> int:
+    """Compress and write streams; returns total archive bytes. ``codec`` is
+    one codec for every stream, or the candidate table "auto" (host codecs)
+    or "device" (on-device codecs); ``device`` runs the on-device codecs."""
     names = sorted(streams)
 
     def encode_one(name: str) -> tuple[str, bytes]:
         raw = streams[name]
-        if codec == "auto":
-            return backend.best_of(_auto_candidates(name, len(raw)), raw)
-        return codec, backend.compress(codec, raw)
+        if codec in ("auto", "device"):
+            return backend.best_of(
+                _auto_candidates(name, len(raw), codec), raw, device)
+        return codec, backend.compress(codec, raw, device)
 
     table = []
     blobs = []
@@ -133,10 +156,11 @@ def read_header(path: str) -> dict:
     return _parse_header(path, head)[0]
 
 
-def read_container(path: str, stats: dict | None = None
+def read_container(path: str, stats: dict | None = None, device=None
                    ) -> tuple[dict, Dict[str, bytes]]:
     """(header, raw streams). ``stats`` receives each stream's entropy
-    decode seconds as entropy_<stream>_s."""
+    decode seconds as entropy_<stream>_s; ``device`` runs the on-device
+    codecs."""
     with open(path, "rb") as f:
         data = f.read()
     meta, hlen = _parse_header(path, data)
@@ -151,9 +175,7 @@ def read_container(path: str, stats: dict | None = None
                 "(truncated archive)")
         blob = data[base + ent["off"]: end]
         try:
-            raw = backend.decompress(ent["codec"], blob, ent["rlen"])
-        except NotImplementedError:
-            raise
+            raw = backend.decompress(ent["codec"], blob, ent["rlen"], device)
         except Exception as e:
             raise ValueError(
                 f"{path}: stream {ent['name']!r} failed to decode "

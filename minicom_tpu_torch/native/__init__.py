@@ -28,15 +28,16 @@ _SRCS = [os.path.join(_SRC_DIR, f) for f in (
     "consensus.cpp", "sketch.cpp", "dnalz.cpp")]
 
 
-def build_shared(stem: str, srcs: list[str], cmd_for) -> str:
-    """Build ``srcs`` into ``_build/<stem>-<hash>.so`` unless it exists;
+def build_shared(stem: str, srcs: list[str], cmd_for,
+                 suffix: str = ".so") -> str:
+    """Build ``srcs`` into ``_build/<stem>-<hash><suffix>`` unless it exists;
     ``cmd_for(out_path)`` gives the compiler command. Returns the path."""
     h = hashlib.sha1(" ".join(cmd_for("")).encode())
     for s in srcs:
         with open(s, "rb") as f:
             h.update(f.read())
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    so = os.path.join(_BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+    so = os.path.join(_BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}{suffix}")
     if os.path.exists(so):
         return so
     with open(os.path.join(_BUILD_DIR, f"{stem}.lock"), "w") as lock:
@@ -64,6 +65,8 @@ _SIGS = {
                                    _U32, _P, _P]),
     "dz_encode": (_I64, [_P, _I64, _P, _I64]),
     "dz_decode": (_I64, [_P, _I64, _P, _I64]),
+    "dz_encode_parts": (_I64, [_P, _I64, _P, _I64, _P, _I64, _P, _P]),
+    "dz_decode_parts": (_I64, [_P, _I64, _P, _I64, _P, _I64]),
     "rc_encode_blocked": (_I64, [_INT, _P, _I64, _I64, _P, _I64]),
     "rc_decode_blocked": (_I64, [_INT, _P, _I64, _P, _I64]),
     "realign_probe": (_I64, [_P, _P, _I64, _P, _I64, _I64, _P, _I32, _I32,
@@ -259,6 +262,40 @@ def dz_decode(data: bytes, raw_len: int) -> bytes:
     r = _load().dz_decode(buf.ctypes.data, len(buf), out.ctypes.data, raw_len)
     if r != raw_len:
         raise ValueError("dz: corrupt stream")
+    return out.tobytes()
+
+
+def dz_encode_parts(data: bytes) -> tuple[bytes, int, bytes]:
+    """The dz matcher alone (codec "dzt"): (token planes, 12 bytes per
+    token; the token count; 2-bit-packed literal bases), not entropy
+    coded."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    tok_cap = 12 * (len(buf) * 4 // 32 + 2)
+    lit_cap = len(buf) + 8
+    tok = np.empty(tok_cap, np.uint8)
+    lit = np.empty(lit_cap, np.uint8)
+    nt, nlit = ctypes.c_int64(), ctypes.c_int64()
+    r = _load().dz_encode_parts(buf.ctypes.data, len(buf), tok.ctypes.data,
+                                tok_cap, lit.ctypes.data, lit_cap,
+                                ctypes.byref(nt), ctypes.byref(nlit))
+    if r < 0:
+        raise RuntimeError("dz_encode_parts: output buffers too small")
+    return tok[:12 * nt.value].tobytes(), nt.value, lit[:nlit.value].tobytes()
+
+
+def dz_decode_parts(tok: bytes, nt: int, lit_packed: bytes,
+                    raw_len: int) -> bytes:
+    """Inverse of dz_encode_parts. Raises ValueError unless
+    len(tok) == 12 * nt: the native side reads that many bytes."""
+    if len(tok) != 12 * nt:
+        raise ValueError(f"dzt: {len(tok)} token bytes for {nt} tokens")
+    tb = np.frombuffer(tok, np.uint8)
+    lb = np.frombuffer(lit_packed, np.uint8)
+    out = np.empty(raw_len, np.uint8)
+    r = _load().dz_decode_parts(tb.ctypes.data, nt, lb.ctypes.data, len(lb),
+                                out.ctypes.data, raw_len)
+    if r != raw_len:
+        raise ValueError("dzt: corrupt stream")
     return out.tobytes()
 
 

@@ -3,6 +3,8 @@
 
 ``launches[name]`` grows by one each time a wrapper in ``ops/`` launches its
 kernel; launches of a plain PyTorch version on a CPU tensor do not count.
+Wrappers launch from several threads at once (the container codes streams
+in a thread pool), so the count is taken under a lock.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import collections
 import ctypes
 import os
 import shutil
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -18,9 +22,11 @@ from minicom_tpu_torch.native import build_shared
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
-_SRCS = [os.path.join(_CSRC, "sketch.cu"), os.path.join(_CSRC, "consensus.cu")]
+_SRCS = [os.path.join(_CSRC, f) for f in ("sketch.cu", "consensus.cu",
+                                           "rans.cu", "verify.cu")]
 
 launches: collections.Counter = collections.Counter()
+_launches_lock = threading.Lock()
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGS = {
@@ -29,8 +35,13 @@ _SIGS = {
                             _P],
     "mtc_consensus_vote": [_P, _I64, _P, _P, _I64, _I64, _INT, _P, _P, _P,
                            _P],
+    "mtc_rans_encode": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    "mtc_rans_decode": [_P, _P, _I64, _P, _I64, _P, _P, _P, _INT, _INT, _P,
+                        _P],
+    "mtc_popcount_verify": [_P, _P, _I64, _I64, _P, _P],
 }
 _lib = None
+_lib_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -39,34 +50,49 @@ def _nvcc() -> str:
 
 
 def lib():
-    """The kernel library, built on first call."""
+    """The kernel library, built on first call: one nvcc per source, all
+    started together, then one link."""
     global _lib
-    if _lib is None:
-        so = build_shared("_kernels", _SRCS, lambda out: [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            *_SRCS, "-o", out])
-        kl = ctypes.CDLL(so)
-        for name, args in _SIGS.items():
-            fn = getattr(kl, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = args
-        kl.mtc_cuda_error_string.restype = ctypes.c_char_p
-        kl.mtc_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = kl
+    with _lib_lock:
+        if _lib is None:
+            nvcc = _nvcc()
+
+            def compile_one(src):
+                stem = "_" + os.path.splitext(os.path.basename(src))[0]
+                return build_shared(stem, [src], lambda out: [
+                    nvcc, "-gencode", "arch=compute_90a,code=sm_90a",
+                    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-c", src,
+                    "-o", out], suffix=".o")
+
+            with ThreadPoolExecutor(len(_SRCS)) as pool:
+                objs = list(pool.map(compile_one, _SRCS))
+            so = build_shared("_kernels", objs, lambda out: [
+                nvcc, "-shared", *objs, "-o", out])
+            kl = ctypes.CDLL(so)
+            for name, args in _SIGS.items():
+                fn = getattr(kl, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = args
+            kl.mtc_cuda_error_string.restype = ctypes.c_char_p
+            kl.mtc_cuda_error_string.argtypes = [ctypes.c_int]
+            _lib = kl
     return _lib
 
 
 def launch(name: str, *args) -> None:
-    """Call kernel entry point ``name`` (the stream is appended) and raise
-    on the CUDA error it returns; count the launch."""
+    """Call kernel entry point ``name`` (the stream is appended) on the
+    device of its tensors and raise on the CUDA error it returns; count the
+    launch."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     raw = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(lib(), name)(*raw, torch.cuda.current_stream(dev).cuda_stream)
+    fn = getattr(lib(), name)
+    with torch.cuda.device(dev):
+        err = fn(*raw, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib().mtc_cuda_error_string(err).decode()})")
-    launches[name] += 1
+    with _launches_lock:
+        launches[name] += 1
 
 
 def require_cuda(t: torch.Tensor) -> None:

@@ -9,10 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from minicom_tpu_torch.entropy import backend
 from minicom_tpu_torch.ops import cuda
 from minicom_tpu_torch.ops.consensus import consensus_vote
+from minicom_tpu_torch.ops.rans import LANES, rans_decode, rans_encode
 from minicom_tpu_torch.ops.sketch import (sketch_reads_gather,
                                           sketch_windowed_compact32)
+from minicom_tpu_torch.ops.verify import popcount_verify
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +97,86 @@ def test_wrappers_refuse_other_devices(dev):
     codes = torch.zeros((4, 10), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         sketch_reads_gather(codes, torch.zeros(2, dtype=torch.int64), 5)
+
+
+def _payload(name):
+    rng = np.random.default_rng(len(name))
+    if name == "dna":       # repeat-heavy 2-bit-packed bases, for dzt
+        seq = rng.integers(0, 4, 40_000, dtype=np.uint8)
+        full = np.concatenate([seq, (3 - seq)[::-1],
+                               rng.integers(0, 4, 8_000, dtype=np.uint8)])
+        packed = np.zeros(len(full) // 4, np.uint8)
+        for i in range(4):
+            packed |= full[i::4] << (2 * i)
+        return packed.tobytes()
+    return {
+        "skewed": bytes(rng.choice([0, 0, 0, 0, 1, 2, 65],
+                                   40_000).astype(np.uint8)),
+        "const": b"\x00" * 30_000,
+        "empty": b"",
+        "markov": ((rng.integers(-1, 2, 40_000).cumsum() % 16) + 48
+                   ).astype(np.uint8).tobytes(),
+        "text": b"0\n" * 5000 + b"17G44\n" * 700,
+    }[name]
+
+
+@pytest.mark.parametrize("codec,payload", [
+    ("trans", "skewed"), ("trans", "const"), ("trans", "empty"),
+    ("trans1", "markov"), ("trans1", "empty"), ("trans2", "text"),
+    ("trans2", "const"), ("p2:trans1", "skewed"), ("dzt", "dna")])
+def test_rans_kernels_match_plain(dev, codec, payload):
+    """Order 0 (trans), 1 (trans1, dzt tokens), 2 (trans2) and 4 (dzt
+    literals): the stream coded by the kernels equals the one coded by the
+    plain versions, and the kernels decode it."""
+    data = _payload(payload)
+    want = backend.compress(codec, data, torch.device("cpu"))
+    n0 = dict(cuda.launches)
+    got = backend.compress(codec, data, dev)
+    assert got == want
+    assert backend.decompress(codec, got, len(data), dev) == data
+    n1 = dict(cuda.launches)
+    if data or codec != "trans":     # an empty trans stream has no block
+        assert n1["mtc_rans_encode"] > n0.get("mtc_rans_encode", 0)
+    if data:
+        assert n1["mtc_rans_decode"] > n0.get("mtc_rans_decode", 0)
+
+
+@pytest.mark.parametrize("T", [256, 1000, 4096])
+def test_rans_encode_kernel_matches_plain_any_slots(dev, T):
+    """Arbitrary slot grids: f = 0 pad slots, f = M, holes in the mask."""
+    rng = np.random.default_rng(T)
+    f = rng.integers(0, 4097, (T, LANES)).astype(np.uint32)
+    c = (rng.integers(0, 4097, (T, LANES)) % (4097 - f)).astype(np.uint32)
+    valid = rng.random((T, LANES)) < 0.9
+    args = [torch.from_numpy(a) for a in (f, c, valid)]
+    want = rans_encode(*args)
+    got = rans_encode(*(a.to(dev) for a in args))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_rans_decode_kernel_matches_plain_corrupt_words(dev):
+    """Random states and words (a corrupt stream): the clamped word reads
+    and the u32 wraparound agree."""
+    rng = np.random.default_rng(5)
+    A, C, T, W = 4, 16, 512, 64
+    freq = np.tile(np.array([1000, 96, 2000, 1000], np.uint32), C)
+    cum = np.tile(np.array([0, 1000, 1096, 3096], np.uint32), C)
+    slot = np.tile(np.repeat(np.arange(A, dtype=np.uint8), freq[:A]), C)
+    args = [torch.from_numpy(a) for a in (
+        rng.integers(0, 2**32, LANES, dtype=np.uint32),
+        rng.integers(0, 2**16, (W, LANES)).astype(np.uint16),
+        rng.random((T, LANES)) < 0.95, freq, cum, slot)]
+    want = rans_decode(*args, A, C).numpy()
+    got = rans_decode(*(a.to(dev) for a in args), A, C).cpu().numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_verify_kernel_matches_plain(dev):
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.integers(0, 2**32, (1000, 7), dtype=np.uint32))
+    b = torch.from_numpy(rng.integers(0, 2**32, (1000, 7), dtype=np.uint32))
+    n0 = cuda.launches["mtc_popcount_verify"]
+    got = popcount_verify(a.to(dev), b.to(dev)).cpu().numpy()
+    assert cuda.launches["mtc_popcount_verify"] == n0 + 1
+    np.testing.assert_array_equal(got, popcount_verify(a, b).numpy())

@@ -27,6 +27,7 @@ from minicom_tpu_torch.pipeline import merge as tmerge
 from minicom_tpu_torch.pipeline import realign as trealign
 from tests.conftest import genome_reads, random_reads, write_fastq
 from tests.test_roundtrip import _special_reads
+from tests.test_torch_rans import jax_native  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 
@@ -213,6 +214,58 @@ def test_archive_identical_options(tmp_path, cfg):
     assert open(ta, "rb").read() == open(ja, "rb").read()
 
 
+def _device_reads():
+    rng = np.random.default_rng(0)
+    return np.concatenate([
+        genome_reads(rng, 600, 100, genome_len=4000, err=0.01, p_n=0.002),
+        random_reads(rng, 30, 100), _special_reads(100)])
+
+
+@pytest.mark.parametrize("codec", ["device", "trans", "trans1", "trans2",
+                                   "dzt"])
+def test_device_codec_archive_identical(tmp_path, codec):
+    """The on-device codecs, scans in their plain versions: the archive
+    equals the JAX package's and decodes both ways."""
+    fq, ja, ta, _ = _archives(tmp_path, _device_reads(),
+                              CompressorConfig(codec=codec))
+    assert open(ta, "rb").read() == open(ja, "rb").read()
+    want = _sorted_reads(fq)
+    tcomp.decompress(ja, str(tmp_path / "tj.reads"), device="cpu")
+    jcomp.decompress(ta, str(tmp_path / "jt.reads"))
+    assert _sorted_lines(tmp_path / "tj.reads") == want
+    assert _sorted_lines(tmp_path / "jt.reads") == want
+
+
+def test_device_table_archive_identical_bench(tmp_path):
+    """codec="device" on bench.py's default profile at 20,000 reads, where
+    the table picks on-device codecs for the large streams."""
+    from bench import make_dataset
+    from minicom_tpu_torch.io import container
+    fq = str(tmp_path / "bench.fastq")
+    make_dataset(fq, 20_000)
+    _, ja, ta, _ = _archives(tmp_path, fq, CompressorConfig(codec="device"))
+    assert open(ta, "rb").read() == open(ja, "rb").read()
+    used = {e["name"]: e["codec"] for e in container.read_header(ta)["streams"]}
+    assert (used["diff"], used["nsingle"], used["dpos"], used["cnt"]) == (
+        "trans1", "trans1", "p2:trans1", "p4:trans1"), used
+    tcomp.decompress(ja, str(tmp_path / "tj.reads"), device="cpu")
+    assert _sorted_lines(tmp_path / "tj.reads") == _sorted_reads(fq)
+    jcomp.decompress(ta, str(tmp_path / "jt.reads"))
+    assert _sorted_lines(tmp_path / "jt.reads") == _sorted_reads(fq)
+
+
+def test_cli_device_codec_roundtrip(tmp_path):
+    rng = np.random.default_rng(6)
+    reads = genome_reads(rng, 300, 80, genome_len=2000)
+    fq = str(tmp_path / "in.fastq")
+    write_fastq(fq, reads)
+    arc, out = str(tmp_path / "o.mtc"), str(tmp_path / "o.reads")
+    assert cli.main(["-r", fq, "-o", arc, "--codec", "device",
+                     "--device", "cpu"]) == 0
+    assert cli.main(["-d", arc, "-o", out, "--device", "cpu"]) == 0
+    assert _sorted_lines(out) == sorted(bytes(r) for r in reads)
+
+
 def test_tiny_inputs_roundtrip(tmp_path):
     rng = np.random.default_rng(1)
     for reads in (np.tile(random_reads(rng, 1, 60), (5, 1)),
@@ -237,8 +290,7 @@ def test_cli_roundtrip(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-p"], ["--checkpoint", "ck"], ["--codec", "device"],
-    ["--codec", "trans1"], ["-1", "{fq}", "-2", "{fq}"]])
+    ["-p"], ["--checkpoint", "ck"], ["-1", "{fq}", "-2", "{fq}"]])
 def test_out_of_slice_options_raise(tmp_path, argv):
     fq = str(tmp_path / "in.fastq")
     write_fastq(fq, random_reads(np.random.default_rng(0), 10, 50))
@@ -266,3 +318,24 @@ def test_cuda_device_needs_a_gpu(tmp_path):
     write_fastq(fq, random_reads(np.random.default_rng(0), 10, 50))
     with pytest.raises(RuntimeError, match="CUDA"):
         tcomp.compress(fq, str(tmp_path / "o.mtc"))
+
+
+def test_device_codec_on_cuda_needs_a_gpu(tmp_path):
+    """No CPU fallback: the on-device codecs on device="cuda" raise without
+    a GPU, in compress and in decompress; a host-codec archive still decodes
+    with device="cuda" and no GPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    fq = str(tmp_path / "in.fastq")
+    write_fastq(fq, random_reads(np.random.default_rng(0), 10, 50))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcomp.compress(fq, str(tmp_path / "o.mtc"),
+                       CompressorConfig(codec="device"), device="cuda")
+    dev_arc, host_arc = str(tmp_path / "d.mtc"), str(tmp_path / "h.mtc")
+    tcomp.compress(fq, dev_arc, CompressorConfig(codec="trans1"),
+                   device="cpu")
+    tcomp.compress(fq, host_arc, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tcomp.decompress(dev_arc, str(tmp_path / "d.reads"), device="cuda")
+    tcomp.decompress(host_arc, str(tmp_path / "h.reads"), device="cuda")
+    assert _sorted_lines(tmp_path / "h.reads") == _sorted_reads(fq)
