@@ -18,11 +18,27 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      Then the same with codec="device" (the on-device entropy coders): exact
      roundtrip, rANS encode launched during compress and rANS decode during
      decompress.
+  2o. order-preserving: compress(order=True) + decompress of the phase-2
+     dataset; the decoded file must equal the input's sequence lines in
+     input order, byte for byte; the cluster and merge kernels must have
+     launched during compress.
+  2p. paired-end: mate 1 = the first 2,500,000 reads of the phase-2
+     dataset, mate 2 = the last 2,500,000, as two FASTQ files;
+     compress(reads_path2=) + decompress to two files; the multiset of
+     (line i of file 1, line i of file 2) pairs must equal the input's
+     pairs; the same kernels must have launched.
   3. same bytes: at 100,000 reads, device="cuda" and device="cpu" write
-     identical archives, with codec="auto" and with codec="device".
+     identical archives, with codec="auto" and with codec="device"; in
+     order-preserving mode with codec="auto"; and for 50,000 pairs (the
+     same split) with codec="auto" and with codec="device".
   4. realign verify: on the 100,000-read set, the popcount verify kernel
      recomputes the mismatch count of every placement the host realign probe
      chose at the first threshold, and must agree with it.
+  5. resume: at 100,000 reads with a checkpoint dir, compress, delete the
+     merge and realign snapshots, compress again: the second run resumes
+     from the cluster snapshot, launches the merge kernels (the contig
+     sketch and the re-vote) and not the read minimizer, and writes the
+     same archive.
 The line before the last is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -46,8 +62,8 @@ from minicom_tpu_torch import CompressorConfig, compressor, native
 from minicom_tpu_torch.entropy import device_ctx_rans, device_rans
 from minicom_tpu_torch.io import container, fastq
 from minicom_tpu_torch.ops import consensus, cuda, rans, sketch, verify
-from minicom_tpu_torch.ops.pack import (codes_to_ascii, pack_2bit_words,
-                                        popcount_u32, revcomp_codes)
+from minicom_tpu_torch.ops.pack import (pack_2bit_words, popcount_u32,
+                                        revcomp_codes)
 from minicom_tpu_torch.pipeline import classify, cluster
 from minicom_tpu_torch.pipeline.merge import (_batch_m, _rows_tile,
                                               merge_contigs)
@@ -176,7 +192,7 @@ def phase1_sketch_windowed(dev, report):
 def phase1_consensus(dev, fastq_path, report):
     """Times the vote on the first cluster round's ejection-pass members
     of the phase-3 dataset."""
-    codes = fastq.read_fastq_store(fastq_path)
+    codes = fastq.read_fastq_codes(fastq_path)
     cfg = CompressorConfig().resolve(codes.shape[1])
     cls = classify.classify(codes, cfg)
     codes_dev = torch.from_numpy(cls.codes_sub).to(dev)
@@ -371,11 +387,38 @@ def _require(launched, names, where):
         raise AssertionError(f"{where} never launched {missing}")
 
 
-def _check_roundtrip(dec, want, n, L=100):
-    got = np.fromfile(dec, np.uint8)
+def _input_lines(fq):
+    """The sequence lines of a FASTQ file as an [N, L] byte matrix, read
+    from its bytes (records of 4 lines, every sequence line L long)."""
+    buf = np.fromfile(fq, np.uint8)
+    nl = np.flatnonzero(buf == ord("\n"))
+    starts, ends = nl[0::4] + 1, nl[1::4]
+    L = int(ends[0] - starts[0])
+    if len(nl) % 4 or not np.all(ends - starts == L):
+        raise AssertionError(f"{fq}: not a fixed-length FASTQ")
+    out = np.empty((len(starts), L), np.uint8)
+    col = np.arange(L, dtype=np.int64)
+    for lo in range(0, len(starts), 1 << 18):
+        hi = min(lo + (1 << 18), len(starts))
+        out[lo:hi] = buf[starts[lo:hi, None] + col]
+    return out
+
+
+def _decoded_lines(path, n, L=100):
+    """The n decoded lines of path as an [n, L] matrix; each must be L
+    bases and a newline."""
+    got = np.fromfile(path, np.uint8)
     if got.size != n * (L + 1):
-        raise AssertionError(f"decoded {got.size} bytes")
-    if not np.array_equal(_sorted_rows(got.reshape(n, L + 1)[:, :L]), want):
+        raise AssertionError(f"{path}: decoded {got.size} bytes, want "
+                             f"{n * (L + 1)}")
+    got = got.reshape(n, L + 1)
+    if not np.all(got[:, L] == ord("\n")):
+        raise AssertionError(f"{path}: a decoded line is not {L} bases")
+    return got[:, :L]
+
+
+def _check_roundtrip(dec, want, n):
+    if not np.array_equal(_sorted_rows(_decoded_lines(dec, n)), want):
         raise AssertionError("roundtrip is not exact")
 
 
@@ -397,7 +440,7 @@ def phase2_end_to_end(dev, tmp):
     dsum = compressor.decompress(arc, dec, device=dev)
     dec_s = time.perf_counter() - t0
 
-    want = _sorted_rows(codes_to_ascii(fastq.read_fastq_store(fq)))
+    want = _sorted_rows(_input_lines(fq))
     _check_roundtrip(dec, want, N_READS)
     mb = summary["input_bytes"] / 1e6
     sub = {k: v for k, v in summary.items()
@@ -456,25 +499,108 @@ def phase2_device_codecs(dev, tmp, fq, want, auto_bytes):
     return enc.launched, dec_lt.launched
 
 
+def _split_pairs(fq, tmp, tag):
+    """Mate 1 = the first half of fq's records, mate 2 = the second half,
+    written as two FASTQ files; returns their paths."""
+    buf = np.fromfile(fq, np.uint8)
+    nl = np.flatnonzero(buf == ord("\n"))
+    half = len(nl) // 8
+    cut = int(nl[4 * half - 1]) + 1
+    m1, m2 = (os.path.join(tmp, f"{tag}_{i}.fastq") for i in (1, 2))
+    buf[:cut].tofile(m1)
+    buf[cut:].tofile(m2)
+    return m1, m2
+
+
+def _mode_roundtrip(dev, tag, fq, cfg, auto_bytes, fq2=None):
+    """compress + decompress of one mode on dev, timed, with the launch
+    counts of compress; prints the phase's numbers and returns (launched,
+    decoded paths)."""
+    arc = os.path.join(os.path.dirname(fq), f"{tag}.mtc")
+    outs = [os.path.join(os.path.dirname(fq), f"{tag}_{i}.reads")
+            for i in (1, 2)]
+    with _LaunchTimer() as lt:
+        t0 = time.perf_counter()
+        summary = compressor.compress(fq, arc, cfg, reads_path2=fq2,
+                                      device=dev)
+        enc_s = time.perf_counter() - t0
+    kernel_s = lt.seconds()
+    t0 = time.perf_counter()
+    dsum = compressor.decompress(arc, outs[0], outs[1], device=dev)
+    dec_s = time.perf_counter() - t0
+    mb = summary["input_bytes"] / 1e6
+    nb = summary["archive_bytes"]
+    print(f"[{tag}] encode {enc_s:.2f} s = {mb / enc_s:.3f} MB/s, decode "
+          f"{dec_s:.2f} s = {mb / dec_s:.3f} MB/s, archive {nb} B (ratio "
+          f"{summary['input_bytes'] / nb:.3f}; {nb / auto_bytes:.6f} x the "
+          f"unordered archive's {auto_bytes} B)")
+    print(f"[{tag}] streams {{name: [codec, raw B, coded B]}}: " + json.dumps(
+        {e["name"]: [e["codec"], e["rlen"], e["clen"]]
+         for e in container.read_header(arc)["streams"]}))
+    print(f"[{tag}] encode stages s: " + json.dumps(summary["timings_s"]))
+    print(f"[{tag}] decode stages s: " + json.dumps(dsum["timings_s"]))
+    print(f"[{tag}] kernel launches during compress: "
+          + json.dumps(lt.launched))
+    print(f"[{tag}] kernel device seconds during compress: "
+          f"{json.dumps(kernel_s)}; {sum(kernel_s.values()) / enc_s:.6f} of "
+          "the encode wall")
+    return lt.launched, outs
+
+
+def phase2_order(dev, fq, auto_bytes):
+    launched, (dec, _) = _mode_roundtrip(
+        dev, "2o", fq, CompressorConfig(order=True), auto_bytes)
+    want = _input_lines(fq)
+    if not np.array_equal(_decoded_lines(dec, len(want)), want):
+        raise AssertionError("order-preserving roundtrip is not line for "
+                             "line")
+    print(f"[2o] {len(want)} lines decoded in input order, byte for byte")
+    return launched
+
+
+def phase2_pe(dev, tmp, fq, auto_bytes):
+    m1, m2 = _split_pairs(fq, tmp, "pe")
+    launched, (o1, o2) = _mode_roundtrip(dev, "2p", m1, CompressorConfig(),
+                                         auto_bytes, fq2=m2)
+    w1, w2 = _input_lines(m1), _input_lines(m2)
+    got = _sorted_rows(np.concatenate([_decoded_lines(o1, len(w1)),
+                                       _decoded_lines(o2, len(w2))], axis=1))
+    if not np.array_equal(got, _sorted_rows(np.concatenate([w1, w2],
+                                                           axis=1))):
+        raise AssertionError("paired-end roundtrip does not keep the pairs")
+    print(f"[2p] {len(w1)} pairs decoded, the multiset of pairs exact")
+    return launched
+
+
+def _same_archive(a, b, what):
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{what}: archives differ")
+
+
 def phase3_same_bytes(dev, fq, tmp):
-    for codec in ("auto", "device"):
-        a, b = (os.path.join(tmp, f"{codec}_{d}.mtc") for d in ("cuda", "cpu"))
-        cfg = CompressorConfig(codec=codec)
-        compressor.compress(fq, a, cfg, device=dev)
-        compressor.compress(fq, b, cfg, device="cpu")
-        with open(a, "rb") as fa, open(b, "rb") as fb:
-            if fa.read() != fb.read():
-                raise AssertionError(f"codec={codec}: cuda and cpu archives "
-                                     "differ")
-        print(f"[3] {N_SAME_BYTES} reads, codec={codec}: cuda and cpu "
-              f"archives identical ({os.path.getsize(a)} B)")
+    m1, m2 = _split_pairs(fq, tmp, "same_pe")
+    for tag, cfg, fq2 in (
+            ("codec=auto", CompressorConfig(), None),
+            ("codec=device", CompressorConfig(codec="device"), None),
+            ("order, codec=auto", CompressorConfig(order=True), None),
+            ("PE, codec=auto", CompressorConfig(), m2),
+            ("PE, codec=device", CompressorConfig(codec="device"), m2)):
+        a, b = (os.path.join(tmp, f"same_{d}.mtc") for d in ("cuda", "cpu"))
+        src = fq if fq2 is None else m1
+        compressor.compress(src, a, cfg, reads_path2=fq2, device=dev)
+        compressor.compress(src, b, cfg, reads_path2=fq2, device="cpu")
+        _same_archive(a, b, f"{tag}: cuda and cpu")
+        n = (f"{N_SAME_BYTES // 2} pairs" if fq2 else f"{N_SAME_BYTES} reads")
+        print(f"[3] {n}, {tag}: cuda and cpu archives identical "
+              f"({os.path.getsize(a)} B)")
 
 
 def phase4_verify_path(dev, fq):
     """The popcount verify of every placement that the host realign probe
     picks at the first threshold of the ladder, on the cluster and merge
     output of the 100,000-read set."""
-    codes = fastq.read_fastq_store(fq)
+    codes = fastq.read_fastq_codes(fq)
     L = codes.shape[1]
     cfg = CompressorConfig().resolve(L)
     cls = classify.classify(codes, cfg)
@@ -503,6 +629,31 @@ def phase4_verify_path(dev, fq):
           f"singletons at threshold {thr}; the kernel's mismatch counts "
           "equal the host probe's")
     return lt.launched
+
+
+def phase5_resume(dev, fq, tmp):
+    """A run resumed from the cluster snapshot re-votes in merge and writes
+    the uninterrupted run's archive."""
+    ck = os.path.join(tmp, "ck")
+    a, b = (os.path.join(tmp, f"resume_{x}.mtc") for x in ("a", "b"))
+    cfg = CompressorConfig(checkpoint_dir=ck)
+    compressor.compress(fq, a, cfg, device=dev)
+    for stage in ("merge", "realign"):
+        os.unlink(os.path.join(ck, f"{stage}.npz"))
+    with _LaunchTimer() as lt:
+        summary = compressor.compress(fq, b, cfg, device=dev)
+    if summary.get("resumed_from") != "cluster":
+        raise AssertionError(f"resumed from {summary.get('resumed_from')}, "
+                             "want cluster")
+    _require(lt.launched, ("mtc_sketch_windowed", "mtc_consensus_vote"),
+             "the resumed compress")
+    if lt.launched.get("mtc_sketch_reads", 0):
+        raise AssertionError("the resumed compress ran the cluster stage")
+    _same_archive(a, b, "resumed and uninterrupted runs")
+    print(f"[5] {N_SAME_BYTES} reads resumed from the cluster snapshot: "
+          f"launches {json.dumps(lt.launched)}, stages s "
+          f"{json.dumps(summary['timings_s'])}; archive equals the "
+          f"uninterrupted run's ({os.path.getsize(b)} B)")
 
 
 def main() -> int:
@@ -537,9 +688,16 @@ def main() -> int:
         enc, dec = phase2_device_codecs(dev, tmp, fq, want, auto_bytes)
         _require(enc, ("mtc_rans_encode",), "codec=device compress")
         _require(dec, ("mtc_rans_decode",), "codec=device decompress")
+        main_path = ("mtc_sketch_reads", "mtc_sketch_windowed",
+                     "mtc_consensus_vote")
+        _require(phase2_order(dev, fq, auto_bytes), main_path,
+                 "order-preserving compress")
+        _require(phase2_pe(dev, tmp, fq, auto_bytes), main_path,
+                 "paired-end compress")
         phase3_same_bytes(dev, fq_small, tmp)
         ver = phase4_verify_path(dev, fq_small)
         _require(ver, ("mtc_popcount_verify",), "the realign verify path")
+        phase5_resume(dev, fq_small, tmp)
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
                     mtc_popcount_verify=ver["mtc_popcount_verify"])

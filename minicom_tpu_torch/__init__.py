@@ -1,11 +1,14 @@
 """minicom_tpu_torch — the PyTorch + CUDA port of the minicom_tpu compressor.
 
-Single-end, unordered, ``codec="auto"`` compress -> decompress. The device
-stages (whole-read minimizer, consensus vote, windowed contig sketch) run as
-hand-written CUDA kernels on a CUDA device, or as their plain PyTorch
+Compress -> decompress in every mode of the JAX package (single-end
+unordered, order-preserving, paired-end), with every codec (host ``auto``,
+on-device ``device``) and stage checkpoint/resume. The device stages
+(whole-read minimizer, consensus vote, windowed contig sketch, rANS scans)
+run as hand-written CUDA kernels on a CUDA device, or as their plain PyTorch
 versions on the CPU; the archive is byte-identical either way and
-byte-identical to the JAX package's. The host C++ of ``minicom_tpu/native``
-is compiled from its sources in place (``native/__init__.py``).
+byte-identical to the JAX package's. Runs in more than one process are not
+ported yet. The host C++ of ``minicom_tpu/native`` is compiled from its
+sources in place (``native/__init__.py``).
 
 This package never imports jax or ``minicom_tpu``.
 """

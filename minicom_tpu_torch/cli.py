@@ -1,14 +1,16 @@
 """Command-line interface of the port:
 
-    python -m minicom_tpu_torch.cli -r reads.fastq [-o out.mtc] [flags]
-    python -m minicom_tpu_torch.cli -d archive.mtc [-o out.reads]
+    python -m minicom_tpu_torch.cli -r reads.fastq [-p] [-o out.mtc] [flags]
+    python -m minicom_tpu_torch.cli -1 a_1.fastq -2 a_2.fastq [-o out.mtc]
+    python -m minicom_tpu_torch.cli -d archive.mtc [-o out.reads] [-O out2]
 
-The flags are the JAX package's (-t -k -e -m -w -s -S -E -g -R, --codec,
---no-merge-revote, --merge-rank-cap, --merge-probe-cap), plus --device
-(default cuda; cpu runs the kernels' plain PyTorch versions), which -d uses
-for the streams of the on-device codecs (--codec device, trans, trans1,
-trans2, dzt). Paired-end input (-1/-2), -p and --checkpoint raise
-NotImplementedError.
+The flags are the JAX package's (-t -k -e -m -w -s -S -E -g -R, -p
+order-preserving, --codec, --no-merge-revote, --merge-rank-cap,
+--merge-probe-cap, --checkpoint), plus --device (default cuda; cpu runs the
+kernels' plain PyTorch versions), which -d uses for the streams of the
+on-device codecs (--codec device, trans, trans1, trans2, dzt). -d of a
+paired-end archive writes mate 2 to -O (default: the -o path + ".2").
+Runs in more than one process raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--merge-probe-cap", type=int, default=0, metavar="N",
                    help="max index hits walked per merge probe (0 = auto)")
     p.add_argument("--checkpoint", metavar="DIR", default=None,
-                   help="stage checkpoint dir (not ported yet)")
+                   help="stage checkpoint dir; reruns resume from the newest "
+                        "completed stage (same input + flags required)")
     p.add_argument("--device", default="cuda",
                    help="torch device of the kernels: cuda (default) or cpu")
     p.add_argument("--stats", action="store_true", help="print JSON stats")

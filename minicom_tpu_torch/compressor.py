@@ -1,22 +1,28 @@
 """compress / decompress entry points (reference: minicommain.c +
 preprocess.c orchestration).
 
-compress():  load -> classify -> upload the read store to ``device`` ->
-             cluster rounds -> contig merge -> realignment ladder ->
-             serialize -> .mtc container.
-decompress(): container -> streams -> unordered assembly, streamed to disk
-             by a writer thread. Host work, apart from the streams that an
-             on-device codec coded.
+compress():  load (one FASTQ, or the two mates of a paired-end run) ->
+             classify -> upload the read store to ``device`` -> cluster
+             rounds -> contig merge -> realignment ladder -> serialize ->
+             .mtc container. With ``checkpoint_dir`` the state after
+             cluster, merge and realign is saved, and a rerun resumes from
+             the newest valid snapshot.
+decompress(): container -> streams -> assembly by mode: unordered (streamed
+             to disk by a writer thread), order-preserving (every read at
+             its input line) or paired-end (two files, line i of the second
+             the mate of line i of the first). Host work, apart from the
+             streams that an on-device codec coded.
 
 On ``device="cuda"`` the device stages launch the CUDA kernels; on
 ``device="cpu"`` they run the kernels' plain PyTorch versions. Both write the
 same archive, byte for byte, as ``minicom_tpu.compressor.compress``. With
 ``codec="device"`` (or one of the on-device codecs) the entropy stage runs
-on ``device`` too.
+on ``device`` too. Runs in more than one process are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 
 from minicom_tpu_torch import native
+from minicom_tpu_torch.checkpoint import StageCheckpoint
 from minicom_tpu_torch.config import CompressorConfig
 from minicom_tpu_torch.entropy.backend import is_device_codec
 from minicom_tpu_torch.io import container, fastq
@@ -36,14 +43,8 @@ from minicom_tpu_torch.pipeline.realign import realign_ladder
 from minicom_tpu_torch.stats import StageStats
 
 
-def _check_in_slice(cfg: CompressorConfig, reads_path2) -> None:
+def _check_in_slice() -> None:
     """Raise NotImplementedError for what this port does not do yet."""
-    if reads_path2 is not None or cfg.paired:
-        raise NotImplementedError("paired-end input is not ported yet")
-    if cfg.order:
-        raise NotImplementedError("order-preserving mode is not ported yet")
-    if cfg.checkpoint_dir:
-        raise NotImplementedError("stage checkpoints are not ported yet")
     if (torch.distributed.is_available() and torch.distributed.is_initialized()
             and torch.distributed.get_world_size() > 1):
         raise NotImplementedError("multi-process runs are not ported yet")
@@ -59,17 +60,36 @@ def _device(device) -> torch.device:
     return dev
 
 
+def _load(reads_path, reads_path2):
+    """(codes, half_val): one FASTQ's [N, L] codes and 0, or mate 1's rows
+    then mate 2's and the mate-1 count."""
+    codes = fastq.read_fastq_codes(reads_path)
+    if reads_path2 is None:
+        return codes, 0
+    codes2 = fastq.read_fastq_codes(reads_path2)
+    if codes2.shape[1] != codes.shape[1]:
+        raise ValueError("paired files have different read lengths")
+    if codes2.shape[0] != codes.shape[0]:
+        raise ValueError("paired files contain different read counts")
+    return np.concatenate([codes, codes2], axis=0), codes.shape[0]
+
+
 def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None,
              reads_path2: str | None = None, stats: StageStats | None = None,
              device="cuda") -> dict:
-    """Compress a FASTQ file into a .mtc archive; returns the run summary."""
-    cfg = cfg or CompressorConfig()
-    _check_in_slice(cfg, reads_path2)
+    """Compress a FASTQ file (with ``reads_path2``: the two files of a
+    paired-end run) into a .mtc archive; returns the run summary. ``cfg`` is
+    not modified."""
+    _check_in_slice()
+    # paired is set on a copy: the caller's config stays reusable for a
+    # single-end run
+    cfg = dataclasses.replace(cfg or CompressorConfig(),
+                              paired=reads_path2 is not None)
     dev = _device(device)
     stats = stats or StageStats()
 
     with stats.stage("load"):
-        codes = fastq.read_fastq_store(reads_path)
+        codes, half_val = _load(reads_path, reads_path2)
     n_seq, L = codes.shape
     rcfg = cfg.resolve(L if L else 1)
     if rcfg.threads > 0:  # -t: cap native OpenMP + entropy pool workers
@@ -80,28 +100,57 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
         cls = classify_mod.classify(codes, rcfg)
     del codes
 
+    # stage snapshots of the (ClusterSet, singletons) state; a rerun with the
+    # same input + config resumes from the newest (every stage is
+    # deterministic, so the archive is the same)
+    ck = done = None
+    if cfg.checkpoint_dir:
+        paths = [reads_path] + ([reads_path2] if reads_path2 else [])
+        ck = StageCheckpoint(cfg.checkpoint_dir, paths, cfg)
+        done, state = ck.latest()
+        if done:
+            cset, sg, extra = state
+            stats.set("resumed_from", done)
+    rank = {"cluster": 1, "merge": 2, "realign": 3}.get(done, 0)
+
     # the read store goes to the device once; every round and the merge
-    # re-vote gather member rows there by rid
-    with stats.stage("upload"):
-        codes_dev = torch.from_numpy(cls.codes_sub).to(dev)
-    with stats.stage("cluster"):
-        cset, sg = cluster_mod.cluster_rounds(codes_dev, cls.pool, rcfg)
+    # re-vote gather member rows there by rid (so it is uploaded whenever
+    # merge runs, a resume from the cluster snapshot included)
+    codes_dev = None
+    if rank < 2:
+        with stats.stage("upload"):
+            codes_dev = torch.from_numpy(cls.codes_sub).to(dev)
+    if rank < 1:
+        with stats.stage("cluster"):
+            cset, sg = cluster_mod.cluster_rounds(codes_dev, cls.pool, rcfg)
+        if ck:
+            ck.save("cluster", cset, sg)
     stats.set("clusters_initial", cset.n_clusters)
     stats.set("singletons_initial", len(sg))
 
     # widen realign search when few singletons remain (preprocess.c:169-172)
     rcfg = cfg.resolve(L if L else 1, n_singletons=len(sg))
 
-    with stats.stage("merge"):
-        cset = merge_contigs(cset, rcfg, dev, stats.counters,
-                             codes_dev=codes_dev)
+    if rank < 2:
+        with stats.stage("merge"):
+            cset = merge_contigs(cset, rcfg, dev, stats.counters,
+                                 codes_dev=codes_dev)
+        if ck:
+            ck.save("merge", cset, sg)
     del codes_dev
     stats.set("clusters_merged", cset.n_clusters)
     stats.set("consensus_bases", int(cset.ref_ptr[-1]))
 
-    with stats.stage("realign"):
-        cset, sg, extra_a, extra_t = realign_ladder(
-            cset, sg, cls.codes_sub, cls.n_mask, rcfg, stats=stats.counters)
+    if rank < 3:
+        with stats.stage("realign"):
+            cset, sg, extra_a, extra_t = realign_ladder(
+                cset, sg, cls.codes_sub, cls.n_mask, rcfg,
+                stats=stats.counters)
+        if ck:
+            ck.save("realign", cset, sg,
+                    {"extra_a": extra_a, "extra_t": extra_t})
+    else:
+        extra_a, extra_t = extra["extra_a"], extra["extra_t"]
     stats.set("singletons_final", len(sg))
 
     # leftover singles containing N join the single_N stream
@@ -109,7 +158,8 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
     with stats.stage("serialize"):
         sg_has_n = cls.has_n[sg]
         inp = encode_mod.EncodeInput(
-            readlen=L, n_seq=n_seq, codes_sub=cls.codes_sub,
+            readlen=L, n_seq=n_seq, half_val=half_val, order=rcfg.order,
+            paired=rcfg.paired, codes_sub=cls.codes_sub,
             n_mask=cls.n_mask, all_a=cls.all_a, all_t=cls.all_t,
             all_n=cls.all_n,
             near_a=np.concatenate([cls.near_a, extra_a]),
@@ -130,17 +180,15 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
 def decompress(archive_path: str, out_path: str,
                out_path2: str | None = None,
                stats: StageStats | None = None, device="cuda") -> dict:
-    """Decode a single-end unordered .mtc archive to ``out_path`` (one
-    sequence per line, canonical order). ``device`` decodes the streams of
-    on-device codecs and is needed only when the archive has such streams.
-    ``out_path2`` is for paired-end archives, which are not ported yet."""
+    """Decode a .mtc archive to ``out_path``, one sequence per line: in
+    canonical order (unordered archives), in input order (ORDER), or mate 1
+    (PE), whose mates go to ``out_path2`` (default ``out_path + ".2"``).
+    ``device`` decodes the streams of on-device codecs and is needed only
+    when the archive has such streams."""
+    _check_in_slice()
     stats = stats or StageStats()
     with stats.stage("read_container"):   # archive read + entropy decode
         header = container.read_header(archive_path)
-        if header.get("pe") or header.get("order"):
-            raise NotImplementedError(
-                "decoding paired-end or order-preserving archives is not "
-                "ported yet")
         dev = None
         if any(is_device_codec(e["codec"]) for e in header["streams"]):
             dev = _device(device)
@@ -148,8 +196,22 @@ def decompress(archive_path: str, out_path: str,
         meta, streams = container.read_container(archive_path, stats.counters,
                                                  dev)
 
-    # finished row ranges stream to a writer thread while later rows still
-    # decode
+    if meta["pe"] or meta["order"]:
+        with stats.stage("decode"):
+            if meta["pe"]:
+                f1, f2 = decode_mod.assemble_pe(meta, streams, stats.counters,
+                                                pre)
+            else:
+                f1 = decode_mod.assemble_order(meta, streams, stats.counters,
+                                               pre)
+        with stats.stage("write"):   # lines matrices: pure I/O
+            fastq.write_lines(out_path, f1)
+            if meta["pe"]:
+                fastq.write_lines(out_path2 or out_path + ".2", f2)
+        return stats.summary()
+
+    # unordered: finished row ranges stream to a writer thread while later
+    # rows still decode
     q: "queue.Queue" = queue.Queue(maxsize=8)
     werr = []
 

@@ -200,6 +200,8 @@ def decode_cluster_meta(cnt: np.ndarray, d16: np.ndarray, dx: np.ndarray,
     d16 = np.ascontiguousarray(d16, np.uint16)
     dx = np.ascontiguousarray(dx, np.uint32)
     dirbits = np.ascontiguousarray(dirbits, np.uint8)
+    if len(d16) < M or 8 * len(dirbits) < M:
+        raise ValueError("corrupt cluster metadata streams")
     win_base = np.empty(M, np.int64)
     dirs = np.empty(M, np.int8)
     total = _load().decode_cluster_meta(

@@ -50,6 +50,11 @@ def pack_bits(bits: np.ndarray) -> np.ndarray:
     return np.packbits(bits.astype(np.uint8), axis=-1, bitorder="little")
 
 
+def unpack_bits(packed: np.ndarray, length: int) -> np.ndarray:
+    """Inverse of pack_bits: the first ``length`` bits."""
+    return np.unpackbits(packed, axis=-1, bitorder="little")[..., :length]
+
+
 def pack_2bit_words(codes: np.ndarray) -> np.ndarray:
     """[..., L] codes -> [..., ceil(L/16)] uint32 words (base i at bits 2i%32):
     the layout of the realign Hamming verify (XOR + popcount replaces the

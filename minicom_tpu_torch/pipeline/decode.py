@@ -1,10 +1,16 @@
-"""Decompressor for single-end unordered archives (reference: decompress.c).
+"""Decompressor (reference: decompress.c).
 
 Reverses ``pipeline.encode.serialize``: a cluster's consensus length is its
 last member position + readlen, so per-cluster ref extents are a prefix sum
 and the member reads come from one native diff-decode pass per row chunk.
-Output is the canonical emission order (allA, allT, allN, AA, TT, NN,
-single_N, single, cluster members) — a permutation of the input multiset.
+
+Output assembly by mode (decompress.c:1225-1317):
+* unordered: canonical emission order (allA, allT, allN, AA, TT, NN,
+  single_N, single, cluster members), a permutation of the input multiset.
+* ORDER: every read is placed at its input index via the id streams.
+* PE: file bit 0 -> append to the mate-1 output; bit 1 -> place at slot
+  ``peid`` of the mate-2 output, so line i of file 2 is the mate of line i
+  of file 1.
 Host work only.
 """
 
@@ -17,7 +23,8 @@ import threading
 import numpy as np
 
 from minicom_tpu_torch import native
-from minicom_tpu_torch.ops.pack import codes_to_ascii, unpack_2bit
+from minicom_tpu_torch.ops.pack import (codes_to_ascii, unpack_2bit,
+                                        unpack_bits)
 from minicom_tpu_torch.pipeline.encode import DPOS_ESCAPE
 from minicom_tpu_torch.stats import substage as _sub
 
@@ -92,37 +99,47 @@ def _hugepage_empty(n: int, L1: int) -> np.ndarray:
     return np.frombuffer(buf, np.uint8).reshape(n, L1)
 
 
+def _alloc_lines(n: int, L: int) -> np.ndarray:
+    """[n, L+1] output-with-newlines matrix, newline column set: decode
+    writes rows into its [:, :L] view and the writer dumps it whole."""
+    full = _hugepage_empty(n, L + 1)
+    full[:, L] = ord("\n")
+    return full
+
+
 class Prealloc:
-    """The [n_seq, L+1] output-with-newlines matrix, allocated and
-    first-touched on a background thread while the entropy streams decode
-    (the stream decoders release the GIL): by assembly time every page is
-    faulted in."""
+    """The output-with-newlines matrices ([n_seq, L+1], or two [half, L+1]
+    for PE), allocated and first-touched on a background thread while the
+    entropy streams decode (the stream decoders release the GIL): by
+    assembly time every page is faulted in."""
 
     def __init__(self, meta: dict):
-        self._shape = (meta["n_seq"], meta["readlen"])
-        self._full = None
+        rows = [meta["half"]] * 2 if meta.get("pe") else [meta["n_seq"]]
+        self._shapes = [(n, meta["readlen"]) for n in rows]
+        self._full = []
         self._err = None
         self._thread = threading.Thread(target=self._build, daemon=True)
         self._thread.start()
 
     def _build(self):
         try:
-            n, L = self._shape
-            full = _hugepage_empty(n, L + 1)
-            # touch one byte per 4 KiB page: faults + kernel zeroing now
-            if n:
-                full[::max(1, 4096 // (L + 1)), 0] = 0
-            self._full = full
+            for n, L in self._shapes:
+                full = _hugepage_empty(n, L + 1)
+                # touch one byte per 4 KiB page: faults + kernel zeroing now
+                if n:
+                    full[::max(1, 4096 // (L + 1)), 0] = 0
+                self._full.append(full)
         except BaseException as e:   # re-raised on take()
             self._err = e
 
-    def take(self) -> np.ndarray:
-        """Blocks until allocation finishes; returns the lines matrix with
-        its newline column set."""
+    def take(self) -> list:
+        """Blocks until allocation finishes; returns the lines matrices with
+        their newline column set."""
         self._thread.join()
         if self._err is not None:
             raise self._err
-        self._full[:, self._shape[1]] = ord("\n")
+        for (_, L), full in zip(self._shapes, self._full):
+            full[:, L] = ord("\n")
         return self._full
 
 
@@ -131,7 +148,7 @@ def assemble_unordered(meta: dict, streams: dict, stats: dict | None,
     """Fill the [n_seq, L+1] lines matrix in emission order, handing each
     finished row range to ``sink`` (a writer thread streams it to disk while
     later rows still decode). Returns the matrix."""
-    full = pre.take()
+    full = pre.take()[0]
     n_seq, L, M = meta["n_seq"], meta["readlen"], meta["n_members"]
     out = full[:, :L]
     pos = 0
@@ -146,3 +163,120 @@ def assemble_unordered(meta: dict, streams: dict, stats: dict | None,
         _unpack_cluster_reads(meta, streams, out[pos:],
                               lambda lo, hi: sink(full[pos + lo:pos + hi]))
     return full
+
+
+def _all_class_blocks(meta: dict, streams: dict, stats: dict | None):
+    """The special-class blocks, then the cluster members as one [M, L]
+    block."""
+    yield from _iter_class_blocks(meta, streams, stats)
+    out = np.empty((meta["n_members"], meta["readlen"]), np.uint8)
+    with _sub(stats, "decode_clusters"):
+        _unpack_cluster_reads(meta, streams, out, lambda lo, hi: None)
+    yield out
+
+
+def _u32_stream(streams: dict, name: str, n: int) -> np.ndarray:
+    """Stream ``name`` as n u32 values (int64); raises unless it holds
+    exactly n."""
+    v = np.frombuffer(streams.get(name, b""), np.uint32).astype(np.int64)
+    if len(v) != n:
+        raise ValueError(f"{name} stream holds {len(v)} ids, want {n} "
+                         "(corrupt archive)")
+    return v
+
+
+def _in_range(name: str, ids: np.ndarray, bound: int) -> np.ndarray:
+    if len(ids) and (ids.min() < 0 or ids.max() >= bound):
+        raise ValueError(f"{name} ids out of range (corrupt archive)")
+    return ids
+
+
+_ID_STREAMS = (("ids_alla", "n_alla"), ("ids_allt", "n_allt"),
+               ("ids_alln", "n_alln"), ("ids_aa", "n_aa"), ("ids_tt", "n_tt"),
+               ("ids_nn", "n_nn"), ("ids_nsingle", "n_nsingle"),
+               ("ids_single", "n_single"))
+
+
+def _class_ids(meta: dict, streams: dict) -> list:
+    """Input indices of each special class, in emission order: the
+    running sums of its delta id stream."""
+    return [_in_range(name, np.cumsum(_u32_stream(streams, name, meta[count])),
+                      meta["n_seq"])
+            for name, count in _ID_STREAMS]
+
+
+def _cluster_ids(meta: dict, streams: dict) -> np.ndarray:
+    """Decode the abs/delta cluster id stream (kthread_dump.c:117-128)."""
+    M = meta["n_members"]
+    raw = _u32_stream(streams, "ids", M).astype(np.uint32)
+    if M == 0:
+        return np.zeros(0, np.int64)
+    starts = np.cumsum(np.frombuffer(streams["cnt"], np.uint32),
+                       dtype=np.int64)[:-1]
+    first = np.zeros(M, bool)
+    first[0] = True
+    first[starts[starts < M]] = True
+    d16 = np.frombuffer(streams["dpos"], np.uint16)[:M]
+    is_abs = first | (d16 != 0)
+    # ids[i] = raw[i] if abs else ids[i-1] + raw[i] (u32 wraparound,
+    # kthread_dump.c:121-126): a segmented cumsum anchored at abs entries,
+    # out[i] = csum[i] - csum[a] + raw[a] for the latest abs index a <= i
+    seg = np.cumsum(is_abs) - 1
+    csum = np.cumsum(raw, dtype=np.uint64).astype(np.uint32)
+    abs_idx = np.flatnonzero(is_abs)
+    ids = (csum - csum[abs_idx][seg] + raw[abs_idx][seg]).astype(np.uint32)
+    return _in_range("ids", ids.astype(np.int64), meta["n_seq"])
+
+
+def assemble_order(meta: dict, streams: dict, stats: dict | None = None,
+                   pre: Prealloc | None = None) -> np.ndarray:
+    """Every read placed at its input index via the id streams; returns the
+    [n_seq, L+1] lines matrix. Class blocks are decoded, scattered into the
+    output and dropped one at a time, so peak memory is the output + one
+    block."""
+    ids = _class_ids(meta, streams) + [_cluster_ids(meta, streams)]
+    L = meta["readlen"]
+    full = pre.take()[0] if pre else _alloc_lines(meta["n_seq"], L)
+    out = full[:, :L]
+    placed = 0
+    for tgt, blk in zip(ids, _all_class_blocks(meta, streams, stats)):
+        out[tgt] = blk
+        placed += len(blk)
+    if placed != meta["n_seq"]:
+        raise ValueError("id streams do not partition the read set "
+                         "(corrupt archive)")
+    return full
+
+
+def assemble_pe(meta: dict, streams: dict, stats: dict | None = None,
+                pre: Prealloc | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """File bit 0 -> append to the mate-1 output in emission order; bit 1 ->
+    place at slot peid of the mate-2 output. One class block live at a time,
+    tracking the running emission ordinal. Returns the two [half, L+1] lines
+    matrices."""
+    n_emit, half, L = meta["n_seq"], meta["half"], meta["readlen"]
+    fb = np.frombuffer(streams.get("fbits", b""), np.uint8)
+    if n_emit != 2 * half or len(fb) != -(-n_emit // 8):
+        raise ValueError("fbits stream does not match the read count "
+                         "(corrupt archive)")
+    fbits = unpack_bits(fb, n_emit).astype(bool)
+    if int(fbits.sum()) != half:
+        raise ValueError("fbits stream does not split the reads in halves "
+                         "(corrupt archive)")
+    peids = _in_range("peids", _u32_stream(streams, "peids", half), half)
+    full1, full2 = pre.take() if pre else (_alloc_lines(half, L),
+                                           _alloc_lines(half, L))
+    file1, file2 = full1[:, :L], full2[:, :L]
+    pos = n1 = n2 = 0
+    for blk in _all_class_blocks(meta, streams, stats):
+        m2 = fbits[pos:pos + len(blk)]
+        k2 = int(m2.sum())
+        file1[n1:n1 + len(blk) - k2] = blk[~m2]
+        file2[peids[n2:n2 + k2]] = blk[m2]
+        n1 += len(blk) - k2
+        n2 += k2
+        pos += len(blk)
+    if pos != n_emit:
+        raise ValueError("class blocks do not partition the read set "
+                         "(corrupt archive)")
+    return full1, full2

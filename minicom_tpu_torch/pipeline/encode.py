@@ -1,11 +1,11 @@
-"""Stream serialization (reference: kthread_dump.c), single-end unordered.
+"""Stream serialization (reference: kthread_dump.c / kthread_dump_pe.c).
 
 Builds the canonical `.mtc` streams from the final cluster set and the special
 read classes, as single deterministic byte sequences:
 
 * clusters in canonical order (ascending minimum member rid),
 * members within a cluster sorted by (pos, dir, rid) (cmpcluster2,
-  kthread_cb.c:54-69),
+  kthread_cb.c:54-69), or by (pos, rid) in ORDER/PE modes (cmpcluster3),
 * special-class id lists sorted ascending.
 
 Stream records per cluster (print_encode, kthread_dump.c:142-236): consensus
@@ -13,8 +13,11 @@ Stream records per cluster (print_encode, kthread_dump.c:142-236): consensus
 stream for giants), strand bit, and a textual diff line. The consensus length
 is implied: last member pos + readlen (decompress.c:92-100).
 
-Canonical emission order: allA, allT, allN, AA, TT, NN, single_N, single,
-then cluster members.
+Canonical emission order (also the PE pairing order, the mpv replay of
+kthread_dump_pe.c:280-335): allA, allT, allN, AA, TT, NN, single_N, single,
+then cluster members. ORDER adds the id streams that put every read back at
+its input index; PE adds the file bit of each emitted read and, for each
+mate-2 read, the emission ordinal of its mate 1.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ DPOS_ESCAPE = 0xFFFF
 class EncodeInput:
     readlen: int
     n_seq: int
+    half_val: int                 # PE: reads in file 1 (0 otherwise)
+    order: bool
+    paired: bool
     codes_sub: np.ndarray         # [N, L] codes, N substituted
     n_mask: "object"              # SparseNMask: [rids] -> dense bool rows
     all_a: np.ndarray
@@ -52,6 +58,14 @@ def _restored_ascii(inp: EncodeInput, rids: np.ndarray) -> np.ndarray:
     codes = inp.codes_sub[rids].copy()
     codes[inp.n_mask[rids]] = 4
     return codes_to_ascii(codes)
+
+
+def _delta_u32(ids: np.ndarray) -> bytes:
+    """First id, then u32 differences (wrapping) of a sorted id list."""
+    ids = np.asarray(ids, np.uint32)
+    out = ids.copy()
+    out[1:] = ids[1:] - ids[:-1]
+    return out.tobytes()
 
 
 def _const_row(char: bytes, n: int, L: int) -> np.ndarray:
@@ -84,7 +98,10 @@ def serialize(inp: EncodeInput) -> tuple[dict, dict]:
     off = cs.mem_off[flat_idx].astype(np.int64)
     dirs = cs.mem_dir[flat_idx]
     segc = np.repeat(np.arange(C), sizes[cl_order])
-    order2 = np.lexsort((rid, dirs, off, segc))
+    if inp.order or inp.paired:
+        order2 = np.lexsort((rid, off, segc))
+    else:
+        order2 = np.lexsort((rid, dirs, off, segc))
     rid, off, dirs = rid[order2], off[order2], dirs[order2]
 
     # ---- cluster streams -------------------------------------------------
@@ -97,7 +114,8 @@ def serialize(inp: EncodeInput) -> tuple[dict, dict]:
     if (delta < 0).any():
         raise RuntimeError("members not sorted by position")
     esc = delta >= DPOS_ESCAPE
-    streams["dpos"] = np.where(esc, DPOS_ESCAPE, delta).astype(np.uint16).tobytes()
+    d16 = np.where(esc, DPOS_ESCAPE, delta).astype(np.uint16)
+    streams["dpos"] = d16.tobytes()
     streams["dposx"] = delta[esc].astype(np.uint32).tobytes()
     streams["dir"] = pack_bits(dirs.astype(np.uint8)).tobytes()
 
@@ -127,6 +145,8 @@ def serialize(inp: EncodeInput) -> tuple[dict, dict]:
     streams["diff"] = b"".join(parts)
 
     # ---- special-class streams ------------------------------------------
+    all_a, all_t = np.sort(inp.all_a), np.sort(inp.all_t)
+    all_n = np.sort(inp.all_n)
     near_a, near_t = np.sort(inp.near_a), np.sort(inp.near_t)
     mostly_n, nfile = np.sort(inp.mostly_n), np.sort(inp.nfile)
     single = np.sort(inp.single)
@@ -144,11 +164,41 @@ def serialize(inp: EncodeInput) -> tuple[dict, dict]:
     streams["single"] = pack_2bit(inp.codes_sub[single].reshape(-1)).tobytes() \
         if len(single) else b""
 
+    # ---- ORDER id streams ------------------------------------------------
+    if inp.order:
+        for name, ids in (("ids_alla", all_a), ("ids_allt", all_t),
+                          ("ids_alln", all_n), ("ids_aa", near_a),
+                          ("ids_tt", near_t), ("ids_nn", mostly_n),
+                          ("ids_nsingle", nfile), ("ids_single", single)):
+            streams[name] = _delta_u32(ids)
+        # cluster member ids: absolute at a new position, the u32 delta from
+        # the previous member at a repeated one (kthread_dump.c:117-128)
+        ids_out = rid.astype(np.uint32)
+        same_pos = np.zeros(len(rid), bool)
+        same_pos[1:] = (d16[1:] == 0) & (delta[1:] == 0)
+        same_pos[first] = False
+        ids_out[1:] = np.where(same_pos[1:], ids_out[1:] - ids_out[:-1],
+                               ids_out[1:])
+        streams["ids"] = ids_out.tobytes()
+
+    # ---- PE pairing streams ---------------------------------------------
+    if inp.paired:
+        emit_rids = np.concatenate([all_a, all_t, all_n, near_a, near_t,
+                                    mostly_n, nfile, single, rid])
+        half = inp.half_val
+        is_m2 = emit_rids >= half
+        # mpv: ordinal of each emitted mate-1 read in emission order
+        mpv = np.zeros(half, np.uint32)
+        m1 = emit_rids[~is_m2]
+        mpv[m1] = np.arange(len(m1), dtype=np.uint32)
+        streams["fbits"] = pack_bits(is_m2.astype(np.uint8)).tobytes()
+        streams["peids"] = mpv[emit_rids[is_m2] - half].tobytes()
+
     meta = {
         "version": FORMAT_VERSION, "readlen": L, "n_seq": int(inp.n_seq),
-        "order": False, "pe": False, "half": 0,
-        "n_alla": len(inp.all_a), "n_allt": len(inp.all_t),
-        "n_alln": len(inp.all_n),
+        "order": bool(inp.order), "pe": bool(inp.paired),
+        "half": int(inp.half_val),
+        "n_alla": len(all_a), "n_allt": len(all_t), "n_alln": len(all_n),
         "n_aa": len(near_a), "n_tt": len(near_t), "n_nn": len(mostly_n),
         "n_nsingle": len(nfile), "n_single": len(single),
         "n_clusters": int(C), "n_members": int(cs.n_members),

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from minicom_tpu_torch import CompressorConfig, compressor
 from minicom_tpu_torch.entropy import backend
 from minicom_tpu_torch.ops import cuda
 from minicom_tpu_torch.ops.consensus import consensus_vote
@@ -180,3 +181,57 @@ def test_verify_kernel_matches_plain(dev):
     got = popcount_verify(a.to(dev), b.to(dev)).cpu().numpy()
     assert cuda.launches["mtc_popcount_verify"] == n0 + 1
     np.testing.assert_array_equal(got, popcount_verify(a, b).numpy())
+
+
+def _genome_fastq(path, rng, n, L=100):
+    """n reads of a random 4 kb genome, both strands, 1% errors, as FASTQ;
+    returns the sequence lines."""
+    genome = rng.integers(0, 4, 4000, dtype=np.uint8)
+    reads = genome[rng.integers(0, 4000 - L, n)[:, None] + np.arange(L)]
+    err = rng.random((n, L)) < 0.01
+    reads = np.where(err, (reads + 1) % 4, reads).astype(np.uint8)
+    flip = rng.random(n) < 0.5
+    reads[flip] = 3 - reads[flip, ::-1]
+    lines = [bytes(r) for r in np.frombuffer(b"ACGT", np.uint8)[reads]]
+    with open(path, "wb") as f:
+        for i, r in enumerate(lines):
+            f.write(b"@r%d\n%s\n+\n%s\n" % (i, r, b"I" * L))
+    return lines
+
+
+def _cuda_equals_cpu(dev, tmp_path, cfg, fq, fq2=None):
+    """Archive on dev == archive on the CPU; returns the cuda archive and
+    the launch counts of its compress."""
+    a, b = str(tmp_path / "cuda.mtc"), str(tmp_path / "cpu.mtc")
+    n0 = dict(cuda.launches)
+    compressor.compress(fq, a, cfg, reads_path2=fq2, device=dev)
+    n1 = dict(cuda.launches)
+    compressor.compress(fq, b, cfg, reads_path2=fq2, device="cpu")
+    assert open(a, "rb").read() == open(b, "rb").read()
+    return a, {k: v - n0.get(k, 0) for k, v in n1.items()}
+
+
+def test_order_roundtrip_on_cuda(dev, tmp_path):
+    fq = str(tmp_path / "in.fastq")
+    lines = _genome_fastq(fq, np.random.default_rng(11), 800)
+    arc, launched = _cuda_equals_cpu(dev, tmp_path,
+                                     CompressorConfig(order=True), fq)
+    assert launched["mtc_sketch_reads"] > 0
+    assert launched["mtc_consensus_vote"] > 0
+    out = str(tmp_path / "o.reads")
+    compressor.decompress(arc, out)
+    assert open(out, "rb").read().splitlines() == lines
+
+
+def test_pe_roundtrip_on_cuda(dev, tmp_path):
+    rng = np.random.default_rng(12)
+    fq1, fq2 = str(tmp_path / "m1.fastq"), str(tmp_path / "m2.fastq")
+    l1, l2 = _genome_fastq(fq1, rng, 500), _genome_fastq(fq2, rng, 500)
+    arc, launched = _cuda_equals_cpu(dev, tmp_path, CompressorConfig(), fq1,
+                                     fq2)
+    assert launched["mtc_sketch_reads"] > 0
+    o1, o2 = str(tmp_path / "o1.reads"), str(tmp_path / "o2.reads")
+    compressor.decompress(arc, o1, o2)
+    got = sorted(zip(open(o1, "rb").read().splitlines(),
+                     open(o2, "rb").read().splitlines()))
+    assert got == sorted(zip(l1, l2))

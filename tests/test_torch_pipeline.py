@@ -6,6 +6,7 @@ so the first mismatch points at one stage. The archive must be byte-identical,
 and each package must decode the other's archive exactly."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -290,24 +291,64 @@ def test_cli_roundtrip(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["-p"], ["--checkpoint", "ck"], ["-1", "{fq}", "-2", "{fq}"]])
+    ["-p"], ["--checkpoint", "{tmp}/ck"],
+    ["-1", "{fq}", "-2", "{fq2}", "-O", "{tmp}/o2.reads"]])
 def test_out_of_slice_options_raise(tmp_path, argv):
-    fq = str(tmp_path / "in.fastq")
-    write_fastq(fq, random_reads(np.random.default_rng(0), 10, 50))
-    argv = [a.format(fq=fq) for a in argv]
-    if "-1" not in argv:
+    """The options that were out of the first slices (-p, --checkpoint,
+    -1/-2 with -O) now roundtrip through the CLI on the CPU."""
+    rng = np.random.default_rng(0)
+    r1 = genome_reads(rng, 150, 60, genome_len=900)
+    r2 = genome_reads(rng, 150, 60, genome_len=900)
+    fq, fq2 = str(tmp_path / "in.fastq"), str(tmp_path / "in2.fastq")
+    write_fastq(fq, r1)
+    write_fastq(fq2, r2)
+    argv = [a.format(fq=fq, fq2=fq2, tmp=tmp_path) for a in argv]
+    pe = "-1" in argv
+    if not pe:
         argv = ["-r", fq] + argv
-    with pytest.raises(NotImplementedError):
-        cli.main(argv + ["-o", str(tmp_path / "o.mtc"), "--device", "cpu"])
+    arc, out = str(tmp_path / "o.mtc"), str(tmp_path / "o.reads")
+    assert cli.main(argv + ["-o", arc, "--device", "cpu"]) == 0
+    dec = ["-d", arc, "-o", out] + (argv[argv.index("-O"):] if pe else [])
+    assert cli.main(dec) == 0
+    got = open(out, "rb").read().splitlines()
+    if pe:
+        got2 = open(tmp_path / "o2.reads", "rb").read().splitlines()
+        assert (sorted(zip(got, got2))
+                == sorted(zip((bytes(r) for r in r1), (bytes(r) for r in r2))))
+    elif "-p" in argv:
+        assert got == [bytes(r) for r in r1]
+    else:
+        assert sorted(got) == sorted(bytes(r) for r in r1)
+        assert sorted(os.listdir(tmp_path / "ck")) == [
+            "cluster.npz", "merge.npz", "realign.npz"]
 
 
 def test_out_of_slice_archives_raise(tmp_path):
+    """An order-preserving archive of the JAX package, once refused, now
+    decodes in the port line for line."""
     rng = np.random.default_rng(4)
+    reads = genome_reads(rng, 100, 60, genome_len=800)
     fq = str(tmp_path / "in.fastq")
-    write_fastq(fq, genome_reads(rng, 100, 60, genome_len=800))
+    write_fastq(fq, reads)
     arc = str(tmp_path / "o.mtc")
     jcomp.compress(fq, arc, JConfig(order=True))
-    with pytest.raises(NotImplementedError):
+    tcomp.decompress(arc, str(tmp_path / "o.reads"))
+    assert (open(tmp_path / "o.reads", "rb").read().splitlines()
+            == [bytes(r) for r in reads])
+
+
+def test_multi_process_runs_raise(tmp_path, monkeypatch):
+    """Runs in a process group of more than one process are not ported:
+    compress and decompress refuse them."""
+    fq = str(tmp_path / "in.fastq")
+    write_fastq(fq, random_reads(np.random.default_rng(0), 10, 50))
+    arc = str(tmp_path / "o.mtc")
+    tcomp.compress(fq, arc, device="cpu")
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
+    with pytest.raises(NotImplementedError, match="multi-process"):
+        tcomp.compress(fq, str(tmp_path / "p.mtc"), device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-process"):
         tcomp.decompress(arc, str(tmp_path / "o.reads"))
 
 
