@@ -39,12 +39,29 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      from the cluster snapshot, launches the merge kernels (the contig
      sketch and the re-vote) and not the read minimizer, and writes the
      same archive.
+  6. two ranks: this script starts workers of itself (``--dist-worker``)
+     that join one gloo group through a file store and share cuda:0, each
+     with half the host's cores. First one rank alone compresses and
+     decompresses phase 2's 5M file (the single-process walls and peak RSS
+     of a fresh process); then two ranks do: rank 0's archive must equal
+     phase 2's and its decode phase 2's decoded file, byte for byte, rank 1
+     must write neither, and each rank must have launched the read
+     minimizer, the vote and the contig sketch. Then two ranks on the 100k
+     set with codec=device (the rANS encode and decode launched on some
+     rank), ORDER and PE: each archive must equal phase 3's cuda archive,
+     and each decode must be exact. Prints per rank the walls, stages,
+     launches, the seconds and bytes spent in the package's all-gathers,
+     the busiest call sites of those, and the peak RSS of compress and of
+     decompress (sampled from /proc/self/statm; the 5M runs each in fresh
+     processes).
 The line before the last is a JSON object with each kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import filecmp
+import contextlib
 import json
 import os
 import resource
@@ -52,6 +69,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -67,6 +85,7 @@ from minicom_tpu_torch.ops.pack import (pack_2bit_words, popcount_u32,
 from minicom_tpu_torch.pipeline import classify, cluster
 from minicom_tpu_torch.pipeline.merge import (_batch_m, _rows_tile,
                                               merge_contigs)
+from minicom_tpu_torch.stats import StageStats
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_READS = 5_000_000
@@ -579,21 +598,26 @@ def _same_archive(a, b, what):
 
 
 def phase3_same_bytes(dev, fq, tmp):
+    """Returns the mate files and the cuda archive of each case, by tag."""
     m1, m2 = _split_pairs(fq, tmp, "same_pe")
-    for tag, cfg, fq2 in (
+    cuda_archives = {}
+    for i, (tag, cfg, fq2) in enumerate((
             ("codec=auto", CompressorConfig(), None),
             ("codec=device", CompressorConfig(codec="device"), None),
             ("order, codec=auto", CompressorConfig(order=True), None),
             ("PE, codec=auto", CompressorConfig(), m2),
-            ("PE, codec=device", CompressorConfig(codec="device"), m2)):
-        a, b = (os.path.join(tmp, f"same_{d}.mtc") for d in ("cuda", "cpu"))
+            ("PE, codec=device", CompressorConfig(codec="device"), m2))):
+        a, b = (os.path.join(tmp, f"same{i}_{d}.mtc") for d in ("cuda",
+                                                                "cpu"))
         src = fq if fq2 is None else m1
         compressor.compress(src, a, cfg, reads_path2=fq2, device=dev)
         compressor.compress(src, b, cfg, reads_path2=fq2, device="cpu")
         _same_archive(a, b, f"{tag}: cuda and cpu")
+        cuda_archives[tag] = a
         n = (f"{N_SAME_BYTES // 2} pairs" if fq2 else f"{N_SAME_BYTES} reads")
         print(f"[3] {n}, {tag}: cuda and cpu archives identical "
               f"({os.path.getsize(a)} B)")
+    return m1, m2, cuda_archives
 
 
 def phase4_verify_path(dev, fq):
@@ -656,7 +680,297 @@ def phase5_resume(dev, fq, tmp):
           f"uninterrupted run's ({os.path.getsize(b)} B)")
 
 
+class _NamedStages(StageStats):
+    """StageStats that also names the stage open now (for _RssPeak)."""
+    current = None
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        self.current = name
+        try:
+            with super().stage(name):
+                yield
+        finally:
+            self.current = None
+
+
+class _RssPeak:
+    """Peak resident bytes of this process over a span, sampled every 5 ms
+    from /proc/self/statm by a thread: ru_maxrss cannot be reset, and a
+    worker's starts at its parent's high-water mark (fork copies it and
+    exec keeps it). ``peak`` is None where /proc has no statm;
+    ``by_stage`` holds the peak within each stage of ``stats``."""
+
+    def __init__(self, stats: _NamedStages | None = None):
+        self.peak = self.now()
+        self.stats = stats
+        self.by_stage = {}
+        self._stop = threading.Event()
+
+    @staticmethod
+    def now():
+        try:
+            with open("/proc/self/statm") as f:
+                return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, IndexError, ValueError):
+            return None
+
+    def _run(self):
+        while not self._stop.wait(0.005):
+            rss = self.now() or 0
+            self.peak = max(self.peak, rss)
+            name = self.stats and self.stats.current
+            if name:
+                self.by_stage[name] = max(self.by_stage.get(name, 0), rss)
+
+    def __enter__(self):
+        if self.peak is not None:
+            self._thread = threading.Thread(target=self._run, daemon=True)
+            self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        if self.peak is not None:
+            self._thread.join()
+            self.peak = max(self.peak, self.now() or 0)
+
+
+def dist_worker(argv) -> int:
+    """One rank of phase 6: ``chip_smoke.py --dist-worker RANK WORLD STORE
+    JOBS``. Joins a gloo group through ``file://STORE`` and runs the jobs
+    of JOBS (a JSON list) on cuda:0: a job with "fq" compresses, one with
+    "arc" decompresses (after the compress when it has both). Prints one
+    ``DIST {...}`` line per job: walls, stages, kernel launches, the
+    seconds and bytes spent in the package's all-gathers, and the peak RSS
+    of the process after each step."""
+    import datetime
+    from minicom_tpu_torch.parallel import distributed
+    rank, world, store, spec = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    distributed.initialize(f"file://{store}", world_size=world, rank=rank,
+                           timeout=datetime.timedelta(seconds=600))
+    dev = torch.device("cuda", 0)
+    start_rss = _RssPeak.now()   # imports and the group, before any job
+    coll = {}
+    gather = distributed.allgather_ragged_many
+    pkg = os.path.dirname(distributed.__file__)
+
+    def timed_gather(arrays):
+        if world == 1:   # a no-op: nothing is exchanged
+            return gather(arrays)
+        # the call site: the first frame outside parallel/
+        f = sys._getframe(1)
+        while os.path.dirname(f.f_code.co_filename) == pkg:
+            f = f.f_back
+        site = f"{os.path.basename(f.f_code.co_filename)}:{f.f_code.co_name}"
+        t0 = time.perf_counter()
+        out = gather(arrays)
+        dt = time.perf_counter() - t0
+        recv = sum(o.nbytes for o in out)
+        coll["s"] = coll.get("s", 0.0) + dt
+        coll["calls"] = coll.get("calls", 0) + 1
+        coll["sent_B"] = coll.get("sent_B", 0) + sum(
+            np.asarray(a).nbytes for a in arrays)
+        coll["recv_B"] = coll.get("recv_B", 0) + recv
+        calls, sec, nb = coll.setdefault("sites", {}).get(site, (0, 0.0, 0))
+        coll["sites"][site] = (calls + 1, sec + dt, nb + recv)
+        return out
+
+    distributed.allgather_ragged_many = timed_gather
+    fmt = lambda p: p and p.format(rank=rank)  # noqa: E731
+    with open(spec) as f:
+        jobs = json.load(f)
+    os.environ["MTC_WRITE_ALL_RANKS"] = "0"
+    for job in jobs:
+        res = {"rank": rank, "world": world, "tag": job["tag"],
+               "start_rss_B": start_rss}
+        if job.get("fq"):
+            cfg = CompressorConfig(threads=os.cpu_count() // world,
+                                   **job["cfg"])
+            coll.clear()
+            st = _NamedStages()
+            with _LaunchTimer() as lt, _RssPeak(st) as rss:
+                t0 = time.perf_counter()
+                summary = compressor.compress(
+                    job["fq"], fmt(job["out"]), cfg,
+                    reads_path2=job.get("fq2"), stats=st, device=dev)
+                res["encode_s"] = time.perf_counter() - t0
+            res.update(encode_stages=summary["timings_s"],
+                       encode_launches=lt.launched,
+                       encode_kernel_s=lt.seconds(), encode_coll=dict(coll),
+                       encode_peak_rss_B=rss.peak,
+                       encode_stage_rss_B=rss.by_stage,
+                       archive_bytes=summary["archive_bytes"])
+        if job.get("arc"):
+            coll.clear()
+            st = _NamedStages()
+            with _LaunchTimer() as lt, _RssPeak(st) as rss:
+                t0 = time.perf_counter()
+                dsum = compressor.decompress(job["arc"], fmt(job["dec"]),
+                                             fmt(job.get("dec2")), stats=st,
+                                             device=dev)
+                res["decode_s"] = time.perf_counter() - t0
+            res.update(decode_stages=dsum["timings_s"],
+                       decode_launches=lt.launched, decode_coll=dict(coll),
+                       decode_peak_rss_B=rss.peak,
+                       decode_stage_rss_B=rss.by_stage)
+        print("DIST " + json.dumps(res), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def _run_dist(tmp, tag, world, jobs, timeout):
+    """Start ``world`` workers of this script on ``jobs``; a worker that
+    fails, or a group that outlives ``timeout`` seconds, kills the group
+    and fails the phase. Returns each job's results, one list per rank."""
+    spec = os.path.join(tmp, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump(jobs, f)
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    logs = [os.path.join(tmp, f"{tag}.{r}.log") for r in range(world)]
+    procs = []
+    for r in range(world):
+        with open(logs[r], "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 str(r), str(world), os.path.join(tmp, f"{tag}.pg"), spec],
+                cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.poll() not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
+    if any(p.returncode != 0 for p in procs):
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print(f"[6] {tag} rank {r} exit {p.returncode}:\n{out[-3000:]}",
+                  file=sys.stderr)
+        raise AssertionError(f"phase 6 group {tag} failed")
+    return [[json.loads(line[5:]) for line in out.splitlines()
+             if line.startswith("DIST ")] for out in outs]
+
+
+def _print_dist(res):
+    """The per-rank numbers of one job."""
+    head = f"[6] {res['tag']} rank {res['rank']}/{res['world']}"
+    for step, wall in (("encode", "compress"), ("decode", "decompress")):
+        if f"{step}_s" not in res:
+            continue
+        c = res[f"{step}_coll"]
+        print(f"{head} {wall}: {res[f'{step}_s']:.2f} s; all-gathers "
+              f"{c.get('calls', 0)} calls {c.get('s', 0.0):.3f} s, sent "
+              f"{c.get('sent_B', 0)} B, received {c.get('recv_B', 0)} B; "
+              f"peak RSS {res[f'{step}_peak_rss_B']} B ({res['start_rss_B']}"
+              " B at the worker's start; None: /proc has no statm)")
+        print(f"{head} {wall} stages s: " + json.dumps(res[f"{step}_stages"])
+              + "; launches " + json.dumps(res[f"{step}_launches"])
+              + "; peak RSS by stage B: "
+              + json.dumps(res[f"{step}_stage_rss_B"]))
+        sites = sorted(c.get("sites", {}).items(), key=lambda kv: -kv[1][1])
+        if sites:
+            print(f"{head} {wall} all-gathers by call site [calls, s, "
+                  "received B], slowest first: "
+                  + json.dumps(dict(sites[:8])))
+    if "encode_kernel_s" in res:
+        print(f"{head} compress kernel device s: "
+              + json.dumps(res["encode_kernel_s"]))
+
+
+def phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same):
+    """Two ranks of one gloo group on cuda:0: phase 2's 5M file (after one
+    rank alone, for the walls and peak RSS of a fresh single process), each
+    of compress and decompress in fresh processes; then the 100k set with
+    codec=device, ORDER and PE."""
+    t0 = time.perf_counter()
+
+    def job(tag, world, cfg=None, src=None, src2=None, decode=True):
+        base = os.path.join(tmp, f"d{world}_{tag}")
+        j = {"tag": tag, "cfg": cfg or {}}
+        if src:
+            j.update(fq=src, fq2=src2, out=base + "_{rank}.mtc")
+        if decode:
+            j.update(arc=base + "_0.mtc", dec=base + "_{rank}.reads",
+                     dec2=base + "_{rank}.reads2" if src2 else None)
+        return j
+
+    walls = {}
+    for world in (1, 2):
+        t = time.perf_counter()
+        enc = _run_dist(tmp, f"c{world}", world,
+                        [job("5M", world, src=fq, decode=False)], 400)
+        walls[f"{world}c"] = time.perf_counter() - t
+        t = time.perf_counter()
+        dec = _run_dist(tmp, f"d{world}", world, [job("5M", world)], 200)
+        walls[f"{world}d"] = time.perf_counter() - t
+        for r in range(world):
+            _print_dist(enc[r][0])
+            _print_dist(dec[r][0])
+            _require(enc[r][0]["encode_launches"],
+                     ("mtc_sketch_reads", "mtc_consensus_vote",
+                      "mtc_sketch_windowed"),
+                     f"5M compress on rank {r} of {world}")
+        _same_archive(os.path.join(tmp, f"d{world}_5M_0.mtc"), arc,
+                      f"5M: {world} rank(s) and phase 2")
+        if not filecmp.cmp(os.path.join(tmp, f"d{world}_5M_0.reads"),
+                           os.path.join(tmp, "e2e.reads"), shallow=False):
+            raise AssertionError(f"5M: the {world}-rank decode differs from "
+                                 "phase 2's")
+    for f in ("d2_5M_1.mtc", "d2_5M_1.reads"):
+        if os.path.exists(os.path.join(tmp, f)):
+            raise AssertionError(f"rank 1 wrote {f}")
+    print(f"[6] 5M, 1 and 2 ranks: rank 0's archive equals phase 2's "
+          f"({os.path.getsize(arc)} B), its decode equals phase 2's byte for "
+          "byte, rank 1 wrote neither; group walls s (worker start "
+          "included): " + json.dumps(walls))
+
+    small = _run_dist(tmp, "small", 2, [
+        job("device", 2, {"codec": "device"}, fq_small),
+        job("order", 2, {"order": True}, fq_small),
+        job("pe", 2, {}, m1, m2)], 300)
+    for i, (tag, key) in enumerate((("device", "codec=device"),
+                                    ("order", "order, codec=auto"),
+                                    ("pe", "PE, codec=auto"))):
+        for r in range(2):
+            _print_dist(small[r][i])
+        _same_archive(os.path.join(tmp, f"d2_{tag}_0.mtc"), same[key],
+                      f"100k {key}: 2 ranks and one")
+        print(f"[6] 100k {key}, 2 ranks: archive equals the one-process cuda "
+              "archive")
+    for stage, kernel in (("encode_launches", "mtc_rans_encode"),
+                          ("decode_launches", "mtc_rans_decode")):
+        if sum(small[r][0][stage].get(kernel, 0) for r in range(2)) < 1:
+            raise AssertionError(f"codec=device: no rank launched {kernel}")
+    _check_roundtrip(os.path.join(tmp, "d2_device_0.reads"),
+                     _sorted_rows(_input_lines(fq_small)), N_SAME_BYTES)
+    want = _input_lines(fq_small)
+    if not np.array_equal(_decoded_lines(os.path.join(
+            tmp, "d2_order_0.reads"), len(want)), want):
+        raise AssertionError("2-rank ORDER decode is not line for line")
+    w1, w2 = _input_lines(m1), _input_lines(m2)
+    got = np.concatenate([
+        _decoded_lines(os.path.join(tmp, "d2_pe_0.reads"), len(w1)),
+        _decoded_lines(os.path.join(tmp, "d2_pe_0.reads2"), len(w2))], axis=1)
+    if not np.array_equal(_sorted_rows(got),
+                          _sorted_rows(np.concatenate([w1, w2], axis=1))):
+        raise AssertionError("2-rank PE decode does not keep the pairs")
+    print(f"[6] 100k, 2 ranks: device, ORDER and PE decodes exact; phase 6 "
+          f"took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
+        return dist_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -694,10 +1008,11 @@ def main() -> int:
                  "order-preserving compress")
         _require(phase2_pe(dev, tmp, fq, auto_bytes), main_path,
                  "paired-end compress")
-        phase3_same_bytes(dev, fq_small, tmp)
+        m1, m2, same = phase3_same_bytes(dev, fq_small, tmp)
         ver = phase4_verify_path(dev, fq_small)
         _require(ver, ("mtc_popcount_verify",), "the realign verify path")
         phase5_resume(dev, fq_small, tmp)
+        phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same)
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
                     mtc_popcount_verify=ver["mtc_popcount_verify"])

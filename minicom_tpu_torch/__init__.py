@@ -6,8 +6,9 @@ on-device ``device``) and stage checkpoint/resume. The device stages
 (whole-read minimizer, consensus vote, windowed contig sketch, rANS scans)
 run as hand-written CUDA kernels on a CUDA device, or as their plain PyTorch
 versions on the CPU; the archive is byte-identical either way and
-byte-identical to the JAX package's. Runs in more than one process are not
-ported yet. The host C++ of ``minicom_tpu/native`` is compiled from its
+byte-identical to the JAX package's. In a ``torch.distributed`` group (gloo,
+``parallel/``) the stages shard across the processes and the archive stays
+the same. The host C++ of ``minicom_tpu/native`` is compiled from its
 sources in place (``native/__init__.py``).
 
 This package never imports jax or ``minicom_tpu``.

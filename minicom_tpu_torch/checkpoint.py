@@ -14,7 +14,8 @@ the full user config. Any mismatch makes old checkpoints invisible (they are
 ignored, never deleted: a rerun with the original input can still use them).
 
 The ``.npz`` keys and the fingerprint recipe are ``minicom_tpu``'s, so either
-package resumes from the other's snapshots.
+package resumes from the other's snapshots. In a multi-process run rank 0
+writes each snapshot and every rank reads them.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import zipfile
 
 import numpy as np
 
+from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.pipeline.cluster import ClusterSet
 
 #: pipeline order; resume picks the latest stage present & valid
@@ -91,12 +93,16 @@ class StageCheckpoint:
         }
         for k, v in (extra or {}).items():
             arrays["x_" + k] = v
-        buf = io.BytesIO()
-        np.savez(buf, **arrays)
-        tmp = self._path(stage) + ".tmp"
-        with open(tmp, "wb") as f:
-            f.write(buf.getvalue())
-        os.replace(tmp, self._path(stage))
+        # every rank holds the same state: rank 0 alone writes it (ranks
+        # sharing one tmp name would race on its rename), the rest wait
+        if dist.process_grid()[0] == 0:
+            buf = io.BytesIO()
+            np.savez(buf, **arrays)
+            tmp = self._path(stage) + ".tmp"
+            with open(tmp, "wb") as f:
+                f.write(buf.getvalue())
+            os.replace(tmp, self._path(stage))
+        dist.barrier()
 
     def load(self, stage: str):
         """-> (ClusterSet, sg, extra dict), or None if absent, stale or
@@ -119,9 +125,20 @@ class StageCheckpoint:
             return None  # unreadable/truncated checkpoint: recompute
 
     def latest(self):
-        """Newest valid stage -> (stage name, state) or (None, None)."""
+        """Newest valid stage -> (stage name, state) or (None, None). In a
+        group the ranks must find the same stage (they would otherwise run
+        different stages and wait on each other): ValueError on every rank
+        if they do not."""
+        found = None, None
         for stage in reversed(STAGES):
             state = self.load(stage)
             if state is not None:
-                return stage, state
-        return None, None
+                found = stage, state
+                break
+        idx = STAGES.index(found[0]) if found[0] else -1
+        seen = dist.allgather_ragged(np.array([idx], np.int64))
+        if np.any(seen != seen[0]):
+            raise ValueError("ranks found different checkpoint stages: "
+                             + ", ".join(STAGES[i] if i >= 0 else "none"
+                                         for i in seen))
+        return found

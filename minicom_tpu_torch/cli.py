@@ -10,7 +10,11 @@ order-preserving, --codec, --no-merge-revote, --merge-rank-cap,
 kernels' plain PyTorch versions), which -d uses for the streams of the
 on-device codecs (--codec device, trans, trans1, trans2, dzt). -d of a
 paired-end archive writes mate 2 to -O (default: the -o path + ".2").
-Runs in more than one process raise NotImplementedError.
+
+Started by ``torchrun`` (WORLD_SIZE > 1), every process joins one gloo
+group and the run shards across them; rank 0 writes the output:
+
+    torchrun --nproc-per-node 2 -m minicom_tpu_torch.cli -r reads.fastq -o out.mtc
 """
 
 from __future__ import annotations
@@ -69,8 +73,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    from minicom_tpu_torch import compressor  # defer the torch import
+    if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+        return _run(args)
+    from minicom_tpu_torch.parallel import distributed  # defer torch
+    distributed.initialize()
+    rc = _run(args)
+    distributed.shutdown()
+    return rc
 
+
+def _run(args) -> int:
+    from minicom_tpu_torch import compressor  # defer the torch import
     cfg = CompressorConfig(
         k=args.k, diff_threshold=args.e, first_minimizers=args.m,
         contig_window=args.w, num_dicts=args.s, thr_step=args.S,

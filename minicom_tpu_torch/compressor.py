@@ -17,12 +17,20 @@ On ``device="cuda"`` the device stages launch the CUDA kernels; on
 ``device="cpu"`` they run the kernels' plain PyTorch versions. Both write the
 same archive, byte for byte, as ``minicom_tpu.compressor.compress``. With
 ``codec="device"`` (or one of the on-device codecs) the entropy stage runs
-on ``device`` too. Runs in more than one process are not ported yet.
+on ``device`` too.
+
+Called in every process of a ``torch.distributed`` group
+(``parallel.distributed``), both entry points shard their stages: each rank
+keeps 1/P of the read store, runs the kernels on its share of the work and
+exchanges results with ordered all-gathers, so the archive and the decoded
+output are the single-process ones, byte for byte. Rank 0 writes the files
+(every rank with MTC_WRITE_ALL_RANKS=1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue
 import threading
 
@@ -34,6 +42,8 @@ from minicom_tpu_torch.checkpoint import StageCheckpoint
 from minicom_tpu_torch.config import CompressorConfig
 from minicom_tpu_torch.entropy.backend import is_device_codec
 from minicom_tpu_torch.io import container, fastq
+from minicom_tpu_torch.parallel import distributed as dist
+from minicom_tpu_torch.parallel.store import ShardedReadStore, maybe_shard
 from minicom_tpu_torch.pipeline import classify as classify_mod
 from minicom_tpu_torch.pipeline import cluster as cluster_mod
 from minicom_tpu_torch.pipeline import decode as decode_mod
@@ -41,13 +51,6 @@ from minicom_tpu_torch.pipeline import encode as encode_mod
 from minicom_tpu_torch.pipeline.merge import merge_contigs
 from minicom_tpu_torch.pipeline.realign import realign_ladder
 from minicom_tpu_torch.stats import StageStats
-
-
-def _check_in_slice() -> None:
-    """Raise NotImplementedError for what this port does not do yet."""
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("multi-process runs are not ported yet")
 
 
 def _device(device) -> torch.device:
@@ -61,17 +64,19 @@ def _device(device) -> torch.device:
 
 
 def _load(reads_path, reads_path2):
-    """(codes, half_val): one FASTQ's [N, L] codes and 0, or mate 1's rows
-    then mate 2's and the mate-1 count."""
-    codes = fastq.read_fastq_codes(reads_path)
+    """(store, half_val): one FASTQ's [N, L] codes and 0, or mate 1's rows
+    then mate 2's and the mate-1 count. In a group the store is a
+    ShardedReadStore."""
     if reads_path2 is None:
-        return codes, 0
-    codes2 = fastq.read_fastq_codes(reads_path2)
+        return fastq.read_fastq_store(reads_path), 0
+    codes = fastq.read_fastq_full(reads_path)
+    codes2 = fastq.read_fastq_full(reads_path2)
     if codes2.shape[1] != codes.shape[1]:
         raise ValueError("paired files have different read lengths")
     if codes2.shape[0] != codes.shape[0]:
         raise ValueError("paired files contain different read counts")
-    return np.concatenate([codes, codes2], axis=0), codes.shape[0]
+    return (maybe_shard(np.concatenate([codes, codes2], axis=0)),
+            codes.shape[0])
 
 
 def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None,
@@ -80,7 +85,6 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
     """Compress a FASTQ file (with ``reads_path2``: the two files of a
     paired-end run) into a .mtc archive; returns the run summary. ``cfg`` is
     not modified."""
-    _check_in_slice()
     # paired is set on a copy: the caller's config stays reusable for a
     # single-end run
     cfg = dataclasses.replace(cfg or CompressorConfig(),
@@ -115,11 +119,15 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
 
     # the read store goes to the device once; every round and the merge
     # re-vote gather member rows there by rid (so it is uploaded whenever
-    # merge runs, a resume from the cluster snapshot included)
+    # merge runs, a resume from the cluster snapshot included). A sharded
+    # store uploads only this rank's slice
     codes_dev = None
     if rank < 2:
         with stats.stage("upload"):
-            codes_dev = torch.from_numpy(cls.codes_sub).to(dev)
+            if isinstance(cls.codes_sub, ShardedReadStore):
+                codes_dev = cls.codes_sub.on_device(dev)
+            else:
+                codes_dev = torch.from_numpy(cls.codes_sub).to(dev)
     if rank < 1:
         with stats.stage("cluster"):
             cset, sg = cluster_mod.cluster_rounds(codes_dev, cls.pool, rcfg)
@@ -184,8 +192,10 @@ def decompress(archive_path: str, out_path: str,
     canonical order (unordered archives), in input order (ORDER), or mate 1
     (PE), whose mates go to ``out_path2`` (default ``out_path + ".2"``).
     ``device`` decodes the streams of on-device codecs and is needed only
-    when the archive has such streams."""
-    _check_in_slice()
+    when the archive has such streams.
+
+    In a group every rank assembles the whole output; rank 0 writes it
+    (every rank with MTC_WRITE_ALL_RANKS=1) and all meet at a barrier."""
     stats = stats or StageStats()
     with stats.stage("read_container"):   # archive read + entropy decode
         header = container.read_header(archive_path)
@@ -196,22 +206,29 @@ def decompress(archive_path: str, out_path: str,
         meta, streams = container.read_container(archive_path, stats.counters,
                                                  dev)
 
-    if meta["pe"] or meta["order"]:
+    pid, nproc = dist.process_grid()
+    if meta["pe"] or meta["order"] or nproc > 1:
         with stats.stage("decode"):
+            f2 = None
             if meta["pe"]:
                 f1, f2 = decode_mod.assemble_pe(meta, streams, stats.counters,
                                                 pre)
-            else:
+            elif meta["order"]:
                 f1 = decode_mod.assemble_order(meta, streams, stats.counters,
                                                pre)
+            else:
+                f1 = decode_mod.assemble_unordered(
+                    meta, streams, stats.counters, pre, lambda part: None)
         with stats.stage("write"):   # lines matrices: pure I/O
-            fastq.write_lines(out_path, f1)
-            if meta["pe"]:
-                fastq.write_lines(out_path2 or out_path + ".2", f2)
+            if pid == 0 or os.environ.get("MTC_WRITE_ALL_RANKS") == "1":
+                fastq.write_lines(out_path, f1)
+                if f2 is not None:
+                    fastq.write_lines(out_path2 or out_path + ".2", f2)
+            dist.barrier()
         return stats.summary()
 
-    # unordered: finished row ranges stream to a writer thread while later
-    # rows still decode
+    # unordered, one process: finished row ranges stream to a writer thread
+    # while later rows still decode
     q: "queue.Queue" = queue.Queue(maxsize=8)
     werr = []
 

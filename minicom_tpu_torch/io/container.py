@@ -17,7 +17,10 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
+import numpy as np
+
 from minicom_tpu_torch.entropy import backend
+from minicom_tpu_torch.parallel import distributed as dist
 
 MAGIC = b"MTC1"
 
@@ -98,7 +101,13 @@ def write_container(path: str, meta: dict, streams: Dict[str, bytes],
                     codec: str, device=None) -> int:
     """Compress and write streams; returns total archive bytes. ``codec`` is
     one codec for every stream, or the candidate table "auto" (host codecs)
-    or "device" (on-device codecs); ``device`` runs the on-device codecs."""
+    or "device" (on-device codecs); ``device`` runs the on-device codecs.
+
+    In a multi-process run each rank codes a contiguous range of the sorted
+    stream names, weighted by raw size, and the coded streams all-gather in
+    rank order. Rank 0 writes the file (every rank with
+    MTC_WRITE_ALL_RANKS=1, each through its own temporary name) and all
+    ranks meet at a barrier before returning."""
     names = sorted(streams)
 
     def encode_one(name: str) -> tuple[str, bytes]:
@@ -108,10 +117,31 @@ def write_container(path: str, meta: dict, streams: Dict[str, bytes],
                 _auto_candidates(name, len(raw), codec), raw, device)
         return codec, backend.compress(codec, raw, device)
 
+    pid, nproc = dist.process_grid()
+    if nproc == 1:
+        encoded = list(_pool().map(encode_one, names))
+    else:
+        lo, hi = dist.my_partition(
+            np.array([len(streams[n]) for n in names], np.int64))
+        payload = b"".join(
+            struct.pack("<HQ", len(used.encode()), len(blob))
+            + used.encode() + blob
+            for used, blob in _pool().map(encode_one, names[lo:hi]))
+        buf = dist.allgather_bytes(payload)
+        encoded, pos = [], 0
+        while pos < len(buf):
+            nlen, blen = struct.unpack_from("<HQ", buf, pos)
+            pos += 10
+            encoded.append((buf[pos:pos + nlen].decode(),
+                            buf[pos + nlen:pos + nlen + blen]))
+            pos += nlen + blen
+        if len(encoded) != len(names):
+            raise RuntimeError("sharded stream coding lost a stream")
+
     table = []
     blobs = []
     off = 0
-    for name, (used, blob) in zip(names, _pool().map(encode_one, names)):
+    for name, (used, blob) in zip(names, encoded):
         raw = streams[name]
         table.append({"name": name, "off": off, "clen": len(blob),
                       "rlen": len(raw), "codec": used,
@@ -121,14 +151,17 @@ def write_container(path: str, meta: dict, streams: Dict[str, bytes],
     header = dict(meta)
     header["streams"] = table
     hdr = json.dumps(header, separators=(",", ":"), sort_keys=True).encode()
-    tmp = path + ".tmp0"
-    with open(tmp, "wb") as f:
-        f.write(MAGIC)
-        f.write(struct.pack("<I", len(hdr)))
-        f.write(hdr)
-        for b in blobs:
-            f.write(b)
-    os.replace(tmp, path)
+    write_all = os.environ.get("MTC_WRITE_ALL_RANKS") == "1"
+    if pid == 0 or write_all:
+        tmp = path + f".tmp{pid}"
+        with open(tmp, "wb") as f:
+            f.write(MAGIC)
+            f.write(struct.pack("<I", len(hdr)))
+            f.write(hdr)
+            for b in blobs:
+                f.write(b)
+        os.replace(tmp, path)
+    dist.barrier()
     return len(MAGIC) + 4 + len(hdr) + off
 
 
@@ -193,4 +226,22 @@ def read_container(path: str, stats: dict | None = None, device=None
                 time.perf_counter() - t0, 4)
         return ent["name"], raw
 
-    return meta, dict(_pool().map(decode_one, meta["streams"]))
+    ents = meta["streams"]
+    if dist.process_grid()[1] == 1:
+        return meta, dict(_pool().map(decode_one, ents))
+    # each rank decodes a contiguous stream range, weighted by raw size; a
+    # corrupt stream raises the same ValueError on every rank
+    lo, hi = dist.my_partition(np.array([e["rlen"] for e in ents], np.int64))
+    try:
+        mine, err = list(_pool().map(decode_one, ents[lo:hi])), None
+    except ValueError as e:
+        mine, err = [], str(e)
+    dist.raise_together(err)
+    merged = dist.allgather_bytes(
+        b"".join(struct.pack("<Q", len(raw)) + raw for _, raw in mine))
+    streams, pos = {}, 0
+    for e in ents:
+        (blen,) = struct.unpack_from("<Q", merged, pos)
+        streams[e["name"]] = merged[pos + 8:pos + 8 + blen]
+        pos += 8 + blen
+    return meta, streams

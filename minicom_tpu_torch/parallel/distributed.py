@@ -1,0 +1,166 @@
+"""Multi-process compression over ``torch.distributed`` (gloo).
+
+The heavy stages split the SAME canonical work across the processes of a
+group and exchange results with ordered ragged all-gathers, so the archive is
+byte-identical for any process count. Work is cut into contiguous,
+canonically ordered ranges (``partition``): byte ranges of the FASTQ, the
+pending reads each rank owns, hash-value ranges of the round sort, cluster
+ranges of the consensus, chunk ranges of the contig sketch, probe and pair
+ranges of the merge search, contig ranges of the realign probe, member
+ranges of the serializer and the decoder, stream ranges of the container.
+Rank-order concatenation of the pieces reproduces the serial order.
+
+Every payload is a host numpy array, so the backend is gloo on CPU hosts and
+on GPU hosts alike: ranks may share one GPU, which NCCL refuses.
+
+Usage, one process per host or card:
+
+    torchrun --nproc-per-node 2 prog.py     # prog calls initialize()
+    # or, without torchrun:
+    distributed.initialize("file:///shared/pg", world_size=2, rank=r)
+    compressor.compress(...)   # stages shard; rank 0 writes the archive
+"""
+
+from __future__ import annotations
+
+import datetime
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+_PID = 0
+_NPROC = 1
+
+
+def initialize(init_method: str = "env://", world_size: int | None = None,
+               rank: int | None = None,
+               timeout: datetime.timedelta = datetime.timedelta(minutes=30)
+               ) -> None:
+    """Join a gloo process group. ``env://`` reads MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE and RANK (as ``torchrun`` sets them); a ``file://`` or
+    ``tcp://`` method needs ``world_size`` and ``rank``. A collective that
+    waits longer than ``timeout`` raises."""
+    kw = {} if world_size is None else {"world_size": world_size,
+                                        "rank": rank}
+    tdist.init_process_group("gloo", init_method=init_method,
+                             timeout=timeout, **kw)
+
+
+def set_process_grid(pid: int, nproc: int) -> None:
+    """The grid ``process_grid`` reports while no group is initialized
+    (``partition`` alone can run on it; a collective cannot)."""
+    global _PID, _NPROC
+    if not 0 <= pid < nproc:
+        raise ValueError(f"rank {pid} outside a grid of {nproc}")
+    _PID, _NPROC = pid, nproc
+
+
+def process_grid() -> tuple[int, int]:
+    """(rank, world size) of the initialized torch group, else the grid of
+    ``set_process_grid`` ((0, 1) by default)."""
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_rank(), tdist.get_world_size()
+    return _PID, _NPROC
+
+
+def partition(weights: np.ndarray) -> list[tuple[int, int]]:
+    """Split items into NPROC contiguous ranges of ~equal total weight.
+
+    Deterministic: ranges depend only on the weights and the process count.
+    Returns [(lo, hi)] per rank (some possibly empty).
+    """
+    _, nproc = process_grid()
+    n = len(weights)
+    csum = np.cumsum(np.asarray(weights, np.float64))
+    total = csum[-1] if n else 0.0
+    bounds = [0]
+    for p in range(1, nproc):
+        bounds.append(int(np.searchsorted(csum, total * p / nproc)))
+    bounds.append(n)
+    for i in range(1, len(bounds)):  # enforce monotonicity on degenerate data
+        bounds[i] = max(bounds[i], bounds[i - 1])
+    return [(bounds[p], bounds[p + 1]) for p in range(nproc)]
+
+
+def my_partition(weights: np.ndarray) -> tuple[int, int]:
+    return partition(weights)[process_grid()[0]]
+
+
+def allgather_ragged(arr: np.ndarray) -> np.ndarray:
+    """Ordered all-gather of a 1-D array with per-process lengths; the result
+    is the rank-order concatenation (identical on every process). No-op with
+    a single process."""
+    if process_grid()[1] == 1:
+        return arr
+    return allgather_ragged_many([arr])[0]
+
+
+def allgather_ragged_many(arrays: list[np.ndarray]) -> list[np.ndarray]:
+    """Ordered all-gather of several 1-D arrays in one exchange: their int64
+    byte lengths first, then one uint8 payload per rank, padded to the
+    largest rank's; each result is viewed back as its input's dtype."""
+    _, nproc = process_grid()
+    if nproc == 1:
+        return list(arrays)
+    views = [np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+             for a in arrays]
+    lens_local = torch.tensor([len(v) for v in views], dtype=torch.int64)
+    lens_all = torch.empty((nproc, len(views)), dtype=torch.int64)
+    tdist.all_gather(list(lens_all.unbind(0)), lens_local)
+    lens = lens_all.numpy()
+    pad = np.zeros(max(1, int(lens.sum(axis=1).max())), np.uint8)
+    n = sum(len(v) for v in views)
+    if n:
+        np.concatenate(views, out=pad[:n])
+    got = torch.empty((nproc, len(pad)), dtype=torch.uint8)
+    tdist.all_gather(list(got.unbind(0)), torch.from_numpy(pad))
+    g = got.numpy()
+    starts = np.concatenate([np.zeros((nproc, 1), np.int64),
+                             np.cumsum(lens, axis=1)], axis=1)
+    return [np.concatenate([g[p, starts[p, i]:starts[p, i + 1]]
+                            for p in range(nproc)]).view(np.asarray(a).dtype)
+            for i, a in enumerate(arrays)]
+
+
+def allgather_bytes(data: bytes) -> bytes:
+    """Ordered all-gather of byte strings: the rank-order concatenation
+    (``data`` itself with a single process)."""
+    if process_grid()[1] == 1:
+        return data
+    return allgather_ragged(np.frombuffer(data, np.uint8)).tobytes()
+
+
+def raise_together(err: str | None) -> None:
+    """Collective: raise ValueError on every rank when any rank passes an
+    error message (the first failing rank's message). A rank-local check
+    that sits before a collective reports through this, so no rank raises
+    alone while the others wait in the next exchange."""
+    if process_grid()[1] == 1:
+        if err is not None:
+            raise ValueError(err)
+        return
+    msg = np.frombuffer((err or "").encode(), np.uint8)
+    flags, lens, msgs = allgather_ragged_many(
+        [np.array([err is not None], bool), np.array([len(msg)], np.int64),
+         msg])
+    if flags.any():
+        first = int(np.argmax(flags))
+        start = int(lens[:first].sum())
+        raise ValueError(msgs[start:start + lens[first]].tobytes().decode(
+            errors="replace"))
+
+
+def barrier() -> None:
+    """Every rank waits here for the others (no-op with one process)."""
+    if process_grid()[1] > 1:
+        tdist.barrier()
+
+
+def shutdown() -> None:
+    """Leave the group: wait for every rank, then destroy it (a rank that
+    exits while another still reads from it can abort in gloo's
+    teardown)."""
+    if tdist.is_available() and tdist.is_initialized():
+        tdist.barrier()
+        tdist.destroy_process_group()

@@ -23,6 +23,8 @@ import dataclasses
 import numpy as np
 
 from minicom_tpu_torch.config import ResolvedConfig
+from minicom_tpu_torch.parallel import distributed as dist
+from minicom_tpu_torch.parallel.store import ShardedReadStore
 
 
 class SparseNMask:
@@ -55,7 +57,8 @@ class SparseNMask:
 
 @dataclasses.dataclass
 class Classified:
-    codes_sub: np.ndarray     # [N, L] uint8 codes with N substituted (0..3)
+    codes_sub: np.ndarray     # [N, L] uint8 codes with N substituted (0..3),
+    #                           or the ShardedReadStore holding them
     has_n: np.ndarray         # [N] bool — read contained at least one N
     n_mask: SparseNMask       # N positions (sparse; [rids] -> dense rows)
     all_a: np.ndarray         # rid arrays, in input order
@@ -73,9 +76,34 @@ _CLASSES = ("all_a", "all_t", "all_n", "near_a", "near_t", "mostly_n",
             "nfile", "pool")
 
 
-def classify(codes: np.ndarray, cfg: ResolvedConfig) -> Classified:
-    """codes: [N, L] uint8 with N=4. Substitutes IN PLACE: the caller's
-    matrix becomes codes_sub, the pipeline's one resident read store."""
+def classify(codes, cfg: ResolvedConfig) -> Classified:
+    """codes: [N, L] uint8 with N=4, or a ShardedReadStore. Substitutes IN
+    PLACE: the caller's matrix becomes codes_sub, the pipeline's one
+    resident read store.
+
+    Sharded store: each rank classifies its OWN row slice, then the class
+    lists, has_n flags and sparse N positions are all-gathered in rank
+    order, which is ascending-rid order: the result is the unsharded one."""
+    if isinstance(codes, ShardedReadStore):
+        local = _classify_core(codes.local, cfg, codes.r0)
+    else:
+        local = _classify_core(codes, cfg, 0)
+    *lists, has_n, rows, cols = dist.allgather_ragged_many(
+        [local[k] for k in _CLASSES + ("has_n", "nz_rows", "nz_cols")])
+    nz_rids = np.unique(rows)
+    per = (np.searchsorted(rows, nz_rids, side="right")
+           - np.searchsorted(rows, nz_rids, side="left"))
+    ptr = np.zeros(len(nz_rids) + 1, np.int64)
+    np.cumsum(per, out=ptr[1:])
+    return Classified(codes_sub=codes, has_n=has_n,
+                      n_mask=SparseNMask(codes.shape[1], has_n, nz_rids, ptr,
+                                         cols),
+                      **dict(zip(_CLASSES, lists)))
+
+
+def _classify_core(codes: np.ndarray, cfg: ResolvedConfig, rid0: int) -> dict:
+    """Class rid lists, has_n and N positions (rows as global rids) of the
+    rows ``codes``, whose first is rid ``rid0``; substitutes N in place."""
     n, L = codes.shape
     e = cfg.diff_threshold
     masks = {k: np.zeros(n, bool) for k in _CLASSES}
@@ -114,20 +142,13 @@ def classify(codes: np.ndarray, cfg: ResolvedConfig) -> Classified:
         # (kthread_reads.c:182-205; tie priority A,T,G,C)
         r, c = np.nonzero(blk == 4)
         if len(r):
-            npos_rows.append((r + s).astype(np.int64))
+            npos_rows.append((r + s + rid0).astype(np.int64))
             npos_cols.append(c.astype(np.int32))
             maj_idx = np.argmax(np.stack([cA, cT, cG, cC]), axis=0)
             maj_code = np.array([0, 3, 2, 1], dtype=np.uint8)[maj_idx]
             blk[r, c] = maj_code[r]
 
-    rows = np.concatenate(npos_rows)
-    nz_rids = np.unique(rows)
-    per = (np.searchsorted(rows, nz_rids, side="right")
-           - np.searchsorted(rows, nz_rids, side="left"))
-    ptr = np.zeros(len(nz_rids) + 1, np.int64)
-    np.cumsum(per, out=ptr[1:])
-    rid = np.arange(n, dtype=np.int64)
-    return Classified(codes_sub=codes, has_n=has_n,
-                      n_mask=SparseNMask(L, has_n, nz_rids, ptr,
-                                         np.concatenate(npos_cols)),
-                      **{k: rid[m] for k, m in masks.items()})
+    rid = np.arange(n, dtype=np.int64) + rid0
+    return {**{k: rid[m] for k, m in masks.items()}, "has_n": has_n,
+            "nz_rows": np.concatenate(npos_rows),
+            "nz_cols": np.concatenate(npos_cols)}

@@ -10,7 +10,10 @@ k-round <= 9; round == R-1) are a host loop mirroring kt_for_bucket's
 The read store lives on the device (uploaded once by the caller); a round
 sends the device only its members as (rid, dir, column) int64 triples and
 gets back the minimizers, the consensus bytes and the member diffs. The sort
-and the segment bookkeeping stay host numpy.
+and the segment bookkeeping stay host numpy. In a multi-process run the
+store is a ShardedReadStore whose local slice is on each rank's device, and
+every rank runs the kernels on its share of the round (``_sketch``,
+``consensus_from_members``) and its hash range of the sort.
 
 Aligned positions of reverse-strand reads are mirrored with the ROUND's k
 (the reference reuses the initial k, kthread_bucket.c:52,93).
@@ -26,6 +29,8 @@ import torch
 from minicom_tpu_torch.config import ResolvedConfig
 from minicom_tpu_torch.ops.consensus import consensus_vote
 from minicom_tpu_torch.ops.sketch import sketch_reads_gather
+from minicom_tpu_torch.parallel import distributed as dist
+from minicom_tpu_torch.parallel.store import ShardedReadStore
 
 
 @dataclasses.dataclass
@@ -90,13 +95,20 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 def consensus_from_members(readlen: int, seg_id: np.ndarray, offsets: np.ndarray,
                            rids: np.ndarray, dirs: np.ndarray,
-                           n_segments: int, codes_dev: torch.Tensor,
+                           n_segments: int, codes_dev,
                            want_ref: bool = True, want_diffs: bool = True):
     """Batched consensus over CSR-grouped members (seg_id sorted ascending).
 
-    Members are (rid, dir) references into the device read store
-    ``codes_dev``. Returns (ref_flat, ref_ptr, diffs[M]); consensus span of
-    segment c = max(offset)+L (callers rebase offsets to min 0)."""
+    Members are (rid, dir) references into the read store ``codes_dev``:
+    the [N, L] device tensor, or a ShardedReadStore. Returns (ref_flat,
+    ref_ptr, diffs[M]); consensus span of segment c = max(offset)+L
+    (callers rebase offsets to min 0).
+
+    In a multi-process run each rank votes a contiguous range of segments:
+    their column spaces are disjoint, so the ranges' consensus and diffs
+    all-gather in rank order with no reduction. A sharded store first
+    gathers the range's member rows (a collective) and the kernel indexes
+    that block."""
     L = readlen
     if len(seg_id) == 0:
         return np.zeros(0, np.uint8), np.zeros(n_segments + 1, np.int64), np.zeros(0, np.int32)
@@ -107,20 +119,47 @@ def consensus_from_members(readlen: int, seg_id: np.ndarray, offsets: np.ndarray
     ref_ptr = np.zeros(n_segments + 1, np.int64)
     np.cumsum(spans, out=ref_ptr[1:])
 
-    dev = codes_dev.device
+    s0, s1 = dist.my_partition(np.diff(seg_bounds))
+    m0, m1 = int(seg_bounds[s0]), int(seg_bounds[s1])
+    col0, col1 = int(ref_ptr[s0]), int(ref_ptr[s1])
+    rids = np.asarray(rids[m0:m1], np.int64)
+    if isinstance(codes_dev, ShardedReadStore):
+        dev = codes_dev.local_dev.device
+        codes = to_device(codes_dev.rows(rids), dev)
+        rids = np.arange(m1 - m0, dtype=np.int64)
+    else:
+        dev, codes = codes_dev.device, codes_dev
     ref, diffs = consensus_vote(
-        codes_dev, to_device(np.asarray(rids, np.int64) * 2 + dirs, dev),
-        to_device(ref_ptr[seg_id] + offsets, dev), int(ref_ptr[-1]),
-        want_ref, want_diffs)
-    return (ref.cpu().numpy() if want_ref else None, ref_ptr,
-            diffs.cpu().numpy() if want_diffs else None)
+        codes, to_device(rids * 2 + dirs[m0:m1], dev),
+        to_device(ref_ptr[seg_id[m0:m1]] - col0 + offsets[m0:m1], dev),
+        col1 - col0, want_ref, want_diffs)
+    parts = dist.allgather_ragged_many(
+        [x.cpu().numpy() for x in (ref, diffs) if x is not None])
+    ref = parts.pop(0) if want_ref else None
+    diffs = parts.pop(0) if want_diffs else None
+    return ref, ref_ptr, diffs
 
 
-def _sketch(pending: np.ndarray, codes_dev: torch.Tensor, k: int, L: int):
+def _sketch(pending: np.ndarray, codes_dev, k: int, L: int):
     """Whole-read minimizer + mirrored (oriented end) position, round-k
-    aware. The grouping key is the exact canonical k-mer (uint64)."""
-    out = sketch_reads_gather(codes_dev, to_device(pending, codes_dev.device),
-                              k).cpu().numpy()
+    aware. The grouping key is the exact canonical k-mer (uint64).
+
+    With a sharded store each rank sketches the pending reads it owns, on
+    its device slice with local rids; the results, all-gathered with their
+    pending indices, scatter back into pending order."""
+    if isinstance(codes_dev, ShardedReadStore):
+        st = codes_dev
+        mine = np.flatnonzero((pending >= st.r0) & (pending < st.r1))
+        out = sketch_reads_gather(
+            st.local_dev, to_device(pending[mine] - st.r0,
+                                    st.local_dev.device), k).cpu().numpy()
+        idx, *got = dist.allgather_ragged_many([mine, *out])
+        out = np.empty((3, len(pending)), np.uint32)
+        out[:, idx] = got
+    else:
+        out = sketch_reads_gather(codes_dev, to_device(pending,
+                                                       codes_dev.device),
+                                  k).cpu().numpy()
     khi, klo, meta = out
     pos = (meta >> 1).astype(np.int32)
     strand = (meta & 1).astype(np.int8)
@@ -129,9 +168,9 @@ def _sketch(pending: np.ndarray, codes_dev: torch.Tensor, k: int, L: int):
     return key, mpos, strand
 
 
-def cluster_rounds(codes_dev: torch.Tensor, pool: np.ndarray,
-                   cfg: ResolvedConfig):
-    """Run the k-decreasing clustering rounds over the device read store.
+def cluster_rounds(codes_dev, pool: np.ndarray, cfg: ResolvedConfig):
+    """Run the k-decreasing clustering rounds over the device read store
+    (an [N, L] tensor, or a ShardedReadStore with its slice on the device).
 
     Returns (ClusterSet, sg) where sg is the singleton rid list in the
     deterministic order singles are produced (replaces the mutex-appended
@@ -187,12 +226,34 @@ def cluster_rounds(codes_dev: torch.Tensor, pool: np.ndarray,
     return ClusterSet.concat(results), np.concatenate(sg_parts)
 
 
+def _sharded_lexsort(h, mpos, rids):
+    """np.lexsort((rids, -mpos, h)), the sort itself split by hash-VALUE
+    range across processes: equal keys never straddle ranks, so the
+    rank-order concatenation of the per-range lexsorts is the global one.
+    Splitters come from a deterministic sample, identical on every rank."""
+    pid, nproc = dist.process_grid()
+    neg = -mpos.astype(np.int64)
+    if nproc == 1:
+        return np.lexsort((rids, neg, h))
+    sample = np.sort(h[::max(1, len(h) // 65536)])
+    cuts = (sample[(len(sample) * np.arange(1, nproc)) // nproc]
+            if len(sample) else np.zeros(0, h.dtype))
+    mask = np.ones(len(h), bool)
+    if pid and len(cuts):
+        mask &= h >= cuts[pid - 1]
+    if pid < nproc - 1 and len(cuts):
+        mask &= h < cuts[pid]
+    idx = np.flatnonzero(mask)
+    return dist.allgather_ragged(idx[np.lexsort((rids[idx], neg[idx],
+                                                 h[idx]))])
+
+
 def _one_round(codes_dev, rids, h, mpos, strand, e, L):
     """One bucket round: sort -> segments -> consensus -> ejection.
 
     Returns (ClusterSet, singles, ejected, n_clustered_reads).
     """
-    order = np.lexsort((rids, -mpos.astype(np.int64), h))
+    order = _sharded_lexsort(h, mpos, rids)
     h, mpos, strand, rids = h[order], mpos[order], strand[order], rids[order]
     new_seg = np.ones(len(h), bool)
     new_seg[1:] = h[1:] != h[:-1]

@@ -11,7 +11,8 @@ Output assembly by mode (decompress.c:1225-1317):
 * PE: file bit 0 -> append to the mate-1 output; bit 1 -> place at slot
   ``peid`` of the mate-2 output, so line i of file 2 is the mate of line i
   of file 1.
-Host work only.
+Host work only. In a multi-process run the cluster member rows are decoded
+in rank ranges and exchanged, so every rank assembles the whole output.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import numpy as np
 from minicom_tpu_torch import native
 from minicom_tpu_torch.ops.pack import (codes_to_ascii, unpack_2bit,
                                         unpack_bits)
+from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.pipeline.encode import DPOS_ESCAPE
 from minicom_tpu_torch.stats import substage as _sub
 
@@ -47,6 +49,10 @@ def _unpack_cluster_reads(meta: dict, streams: dict, out: np.ndarray,
     nl = np.flatnonzero(buf == ord("\n"))
     if len(nl) < M:
         raise ValueError("diff stream has fewer lines than members")
+    if dist.process_grid()[1] > 1:
+        _unpack_sharded(streams["diff"], nl, ref_cat, base, dirs8, L, out)
+        sink(0, M)
+        return
     CH = 1 << 20
     for lo in range(0, M, CH):
         hi = min(lo + CH, M)
@@ -56,6 +62,43 @@ def _unpack_cluster_reads(meta: dict, streams: dict, out: np.ndarray,
                                base[lo:hi], dirs8[lo:hi], hi - lo, L,
                                out[lo:hi])
         sink(lo, hi)
+
+
+def _unpack_sharded(diff: bytes, nl: np.ndarray, ref_cat: np.ndarray,
+                    base: np.ndarray, dirs8: np.ndarray, L: int,
+                    out: np.ndarray) -> None:
+    """Multi-process member decode: each rank decodes a contiguous row
+    range (its diff text cut at the range's newlines), and the rows are
+    exchanged in rounds of ~64 MB per process into ``out`` on every rank
+    (one whole-output gather would add P x the output to each rank's
+    peak)."""
+    M = len(base)
+    _, nproc = dist.process_grid()
+    bnds = dist.partition(np.ones(M, np.int32))
+    d0, d1 = dist.my_partition(np.ones(M, np.int32))
+    my = np.empty((d1 - d0, L), np.uint8)
+    err = None
+    if d1 > d0:
+        t_lo = 0 if d0 == 0 else int(nl[d0 - 1]) + 1
+        try:
+            native.diff_decode_win(diff[t_lo:int(nl[d1 - 1]) + 1], ref_cat,
+                                   base[d0:d1], dirs8[d0:d1], d1 - d0, L, my)
+        except ValueError as e:   # a corrupt range: every rank raises
+            err = str(e)
+    dist.raise_together(err)
+    CH = max(1, (64 << 20) // (L * nproc))
+    rounds = max(-(-(p1 - p0) // CH) for p0, p1 in bnds)
+    for r in range(rounds):
+        lo = min(d0 + r * CH, d1)
+        blk = dist.allgather_ragged(
+            my[lo - d0:min(lo + CH, d1) - d0].reshape(-1)).reshape(-1, L)
+        # the r-th chunk of every rank, in rank order
+        pos = 0
+        for p0, p1 in bnds:
+            plo = min(p0 + r * CH, p1)
+            phi = min(plo + CH, p1)
+            out[plo:phi] = blk[pos:pos + phi - plo]
+            pos += phi - plo
 
 
 def _const_reads(char: bytes, n: int, L: int) -> np.ndarray:

@@ -28,6 +28,8 @@ import numpy as np
 
 from minicom_tpu_torch import native
 from minicom_tpu_torch.ops.pack import codes_to_ascii, pack_2bit, pack_bits
+from minicom_tpu_torch.parallel import distributed as dist
+from minicom_tpu_torch.parallel.store import ShardedReadStore, rows_all
 from minicom_tpu_torch.pipeline.cluster import ClusterSet
 
 FORMAT_VERSION = 1
@@ -41,7 +43,8 @@ class EncodeInput:
     half_val: int                 # PE: reads in file 1 (0 otherwise)
     order: bool
     paired: bool
-    codes_sub: np.ndarray         # [N, L] codes, N substituted
+    codes_sub: np.ndarray         # [N, L] codes, N substituted (or their
+    #                               ShardedReadStore)
     n_mask: "object"              # SparseNMask: [rids] -> dense bool rows
     all_a: np.ndarray
     all_t: np.ndarray
@@ -55,7 +58,7 @@ class EncodeInput:
 
 
 def _restored_ascii(inp: EncodeInput, rids: np.ndarray) -> np.ndarray:
-    codes = inp.codes_sub[rids].copy()
+    codes = rows_all(inp.codes_sub, rids)
     codes[inp.n_mask[rids]] = 4
     return codes_to_ascii(codes)
 
@@ -98,10 +101,14 @@ def serialize(inp: EncodeInput) -> tuple[dict, dict]:
     off = cs.mem_off[flat_idx].astype(np.int64)
     dirs = cs.mem_dir[flat_idx]
     segc = np.repeat(np.arange(C), sizes[cl_order])
-    if inp.order or inp.paired:
-        order2 = np.lexsort((rid, off, segc))
-    else:
-        order2 = np.lexsort((rid, dirs, off, segc))
+    # segc is nondecreasing, so the sort splits into contiguous member
+    # ranges cut at cluster boundaries: each rank sorts its range and the
+    # rank-order concatenation is the global sort
+    c0, c1 = dist.my_partition(sizes[cl_order])
+    m0, m1 = int(new_ptr[c0]), int(new_ptr[c1])
+    keys = (rid, off, segc) if inp.order or inp.paired else (rid, dirs, off,
+                                                             segc)
+    order2 = dist.allgather_ragged(np.lexsort([x[m0:m1] for x in keys]) + m0)
     rid, off, dirs = rid[order2], off[order2], dirs[order2]
 
     # ---- cluster streams -------------------------------------------------
@@ -130,19 +137,26 @@ def serialize(inp: EncodeInput) -> tuple[dict, dict]:
 
     # diff lines: oriented restored reads vs their ref window, in row chunks
     # (the text is row-aligned, so chunking never changes the bytes; the
-    # restored-codes transient of a whole-member pass is the stage's RSS peak)
+    # restored-codes transient of a whole-member pass is the stage's RSS
+    # peak). Each rank encodes a contiguous member range and the text
+    # gathers in rank order; a sharded store fetches the range's rows in
+    # one collective (chunked inside)
     base = ref_ptr_new[segc] + off
+    d0, d1 = dist.my_partition(np.ones(cs.n_members, np.int32))
+    sharded = isinstance(inp.codes_sub, ShardedReadStore)
+    my_rows = inp.codes_sub.rows(rid[d0:d1]) if sharded else None
     parts = []
     CH = 1 << 18
-    for s in range(0, cs.n_members, CH):
-        t = min(s + CH, cs.n_members)
-        restored = inp.codes_sub[rid[s:t]]
+    for s in range(d0, d1, CH):
+        t = min(s + CH, d1)
+        restored = (my_rows[s - d0:t - d0] if sharded
+                    else inp.codes_sub[rid[s:t]])
         nm = inp.n_mask[rid[s:t]]
         if nm.any():
             restored[nm] = 4
         parts.append(native.diff_encode_win(ref_cat, base[s:t], restored,
                                             dirs[s:t], 0))
-    streams["diff"] = b"".join(parts)
+    streams["diff"] = dist.allgather_bytes(b"".join(parts))
 
     # ---- special-class streams ------------------------------------------
     all_a, all_t = np.sort(inp.all_a), np.sort(inp.all_t)
@@ -161,7 +175,8 @@ def serialize(inp: EncodeInput) -> tuple[dict, dict]:
     nsingle[:, :L] = _restored_ascii(inp, nfile)
     nsingle[:, L] = ord("\n")
     streams["nsingle"] = nsingle.tobytes()
-    streams["single"] = pack_2bit(inp.codes_sub[single].reshape(-1)).tobytes() \
+    streams["single"] = pack_2bit(
+        rows_all(inp.codes_sub, single).reshape(-1)).tobytes() \
         if len(single) else b""
 
     # ---- ORDER id streams ------------------------------------------------

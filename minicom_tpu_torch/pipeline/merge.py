@@ -14,6 +14,10 @@ matching. Generations continue until the contig count changes by < 100
 4. conflict-free greedy matching over the (score, a, b, d)-sorted candidates,
 5. merged consensus by re-voting all members on the device (construct_ref2,
    kthread_cb.c:105-218) or, with ``merge_revote`` off, by splicing.
+
+In a multi-process run each rank sketches a range of the plan's chunks,
+probes a range of the probes and scores a range of the pairs; the results
+all-gather in rank order, so every rank holds the single-process arrays.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import torch
 from minicom_tpu_torch import native
 from minicom_tpu_torch.config import ResolvedConfig
 from minicom_tpu_torch.ops.sketch import sketch_windowed_compact32
+from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.pipeline.cluster import (ClusterSet,
                                                 consensus_from_members,
                                                 to_device)
@@ -103,25 +108,26 @@ def sketch_contigs(cs: ClusterSet, k: int, w: int, rank_cap: int,
         j = i
         while j < C and j - i < tile and lens[order[j]] <= Lmax:
             j += 1
-        plan.append((i, j, Lmax))
+        plan.append((i, j, Lmax, tile))
         i = j
+    # each rank sketches a contiguous chunk range, weighted by padded size
+    b0, b1 = dist.my_partition(np.array([p[3] * p[2] for p in plan]))
 
     ref_dev = to_device(cs.ref_flat, device)
     keys, cids, poss, dirs, ranks = [[np.zeros(0, d)] for d in
                                      (np.uint32, np.int64, np.int32,
                                       np.int8, np.int32)]
-    for i, j, Lmax in plan:
+    saturated = 0
+    for i, j, Lmax, _ in plan[b0:b1]:
         batch = order[i:j]
         mb = _batch_m(Lmax, k, w, rank_cap)
         key, meta, nv = (x.cpu().numpy() for x in sketch_windowed_compact32(
             ref_dev, to_device(cs.ref_ptr[batch], device),
             to_device(lens[batch].astype(np.int32), device),
             Lmax, k, min(w, Lmax - k + 1), mb))
-        if stats is not None:
-            # rows whose slot budget saturated (true emission count unknown
-            # past mb) — the drop signal for the rank cap
-            stats["merge_rank_saturated"] = (
-                stats.get("merge_rank_saturated", 0) + int((nv >= mb).sum()))
+        # rows whose slot budget saturated (true emission count unknown past
+        # mb) — the drop signal for the rank cap
+        saturated += int((nv >= mb).sum())
         v = np.arange(mb, dtype=np.int32)[None, :] < nv[:, None]
         keys.append(key[v])
         cids.append(np.broadcast_to(batch[:, None], v.shape)[v])
@@ -129,7 +135,13 @@ def sketch_contigs(cs: ClusterSet, k: int, w: int, rank_cap: int,
         dirs.append((meta[v] & 1).astype(np.int8))
         ranks.append(np.broadcast_to(np.arange(mb, dtype=np.int32)[None, :],
                                      v.shape)[v])
-    return tuple(np.concatenate(x) for x in (keys, cids, poss, dirs, ranks))
+    *flat, sat = dist.allgather_ragged_many(
+        [np.concatenate(x) for x in (keys, cids, poss, dirs, ranks)]
+        + [np.array([saturated], np.int64)])
+    if stats is not None:   # summed over the ranks: the single-process count
+        stats["merge_rank_saturated"] = (
+            stats.get("merge_rank_saturated", 0) + int(sat.sum()))
+    return tuple(flat)
 
 
 def _candidate_pairs(key, cid, pos, strand, rank, m, stats, new_from,
@@ -148,12 +160,19 @@ def _candidate_pairs(key, cid, pos, strand, rank, m, stats, new_from,
     def _probe(pmask, imask):
         if not imask.any() or not pmask.any():
             return (np.zeros(0, np.int64),) * 3
+        # each rank probes a contiguous range of the probes against the
+        # whole (replicated) index; pairs and drops gather in rank order
+        pi = np.flatnonzero(pmask)
+        r0, r1 = dist.my_partition(np.ones(len(pi), np.int32))
+        pi = pi[r0:r1]
         a, b, d, dropped = native.probe_index_pairs(
             key[imask], cid[imask], pos[imask], strand[imask],
-            key[pmask], cid[pmask], pos[pmask], strand[pmask], probe_cap)
+            key[pi], cid[pi], pos[pi], strand[pi], probe_cap)
+        a, b, d, dropped = dist.allgather_ragged_many(
+            [a, b, d, np.array([dropped], np.int64)])
         if stats is not None:
             stats["merge_probe_drops"] = (
-                stats.get("merge_probe_drops", 0) + dropped)
+                stats.get("merge_probe_drops", 0) + int(dropped.sum()))
         return a, b, d
 
     if new_from is None:
@@ -172,14 +191,24 @@ def _candidate_pairs(key, cid, pos, strand, rank, m, stats, new_from,
     return a[keep], b[keep], d[keep]
 
 
+def _score_pairs(cs: ClusterSet, a, b, d, cap: int) -> np.ndarray:
+    """match_pro mismatch scores of the pairs (``native.score_overlaps``);
+    each rank scores a contiguous pair range weighted by overlap length,
+    and the scores gather in rank order."""
+    lens = cs.ref_lengths()
+    r0, r1 = dist.my_partition(np.minimum(lens[a], lens[b]))
+    return dist.allgather_ragged(native.score_overlaps(
+        cs.ref_flat, cs.ref_ptr, a[r0:r1], b[r0:r1], d[r0:r1], cap))
+
+
 def merge_contigs(cset: ClusterSet, cfg: ResolvedConfig,
                   device: torch.device, stats: dict | None = None,
-                  incremental: bool = True,
-                  codes_dev: torch.Tensor | None = None) -> ClusterSet:
+                  incremental: bool = True, codes_dev=None) -> ClusterSet:
     """Merge generations over ``cset``; the contig sketches run on
-    ``device``. With ``codes_dev`` (the device read store) and
-    cfg.merge_revote, each merged contig is re-voted over all its members;
-    otherwise the two consensus strings are spliced.
+    ``device``. With ``codes_dev`` (the device read store: a tensor, or a
+    ShardedReadStore with its slice on the device) and cfg.merge_revote,
+    each merged contig is re-voted over all its members; otherwise the two
+    consensus strings are spliced.
 
     ``incremental=False`` re-sketches every contig and re-searches the full
     candidate space each generation (the reference's behavior,
@@ -203,8 +232,7 @@ def merge_contigs(cset: ClusterSet, cfg: ResolvedConfig,
         n_merges = 0
         if len(a):
             with _sub(stats, "merge_score"):
-                scores = native.score_overlaps(cset.ref_flat, cset.ref_ptr,
-                                               a, b, d, cfg.cb_threshold)
+                scores = _score_pairs(cset, a, b, d, cfg.cb_threshold)
             ok = scores <= cfg.cb_threshold
             a, b, d, scores = a[ok], b[ok], d[ok], scores[ok]
             # deterministic matching, best score first: each pass takes

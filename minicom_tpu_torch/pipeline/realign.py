@@ -12,7 +12,9 @@ reads" stop mirrors preprocess.c:197-232; each rung first absorbs
 near-allA / near-allT singles into the AA/TT streams (bbhashdict.c:127-227).
 
 The probe runs in host C++ (``native.realign_probe``); ``probe_numpy`` is
-the vectorized numpy statement of the same search, kept as its oracle.
+the vectorized numpy statement of the same search, kept as its oracle. In a
+multi-process run every rank holds the singleton rows, probes a range of
+the contigs, and the winners all-gather before the claim.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from minicom_tpu_torch import native
 from minicom_tpu_torch.config import ResolvedConfig
 from minicom_tpu_torch.ops.pack import (codes_to_ascii, pack_2bit_words,
                                         popcount_u32, revcomp_codes)
+from minicom_tpu_torch.parallel import distributed as dist
+from minicom_tpu_torch.parallel.store import rows_all
 from minicom_tpu_torch.pipeline.cluster import ClusterSet
 from minicom_tpu_torch.stats import substage as _sub
 
@@ -67,6 +71,9 @@ def realign_ladder(cset: ClusterSet, sg: np.ndarray, codes_sub: np.ndarray,
     claimed_total = 0
     big_input = len(sg) > 1_000_000 and L >= 68
 
+    # the singleton rows, fetched once (a collective on a sharded store) and
+    # kept in step with sg as rungs absorb and claim reads
+    sgc = rows_all(codes_sub, sg)
     thr = cfg.diff_threshold
     pop_a = pop_t = None    # per-read base-diff counts vs all-A / all-T:
     prev_thr = -1           # rung-invariant — computed once, subset as sg
@@ -74,7 +81,8 @@ def realign_ladder(cset: ClusterSet, sg: np.ndarray, codes_sub: np.ndarray,
         # --- near-allA/allT absorption at this threshold ------------------
         with _sub(stats, "realign_absorb"):
             if pop_a is None:
-                pop_a, pop_t = native.popcounts_at(codes_sub, sg)
+                pop_a, pop_t = native.popcounts_at(
+                    sgc, np.arange(len(sg), dtype=np.int64))
             cand_a = pop_a <= thr
             cand_t = ~cand_a & (pop_t <= thr)
             # the encode-cost check is rung-invariant too, so only reads
@@ -87,7 +95,7 @@ def realign_ladder(cset: ClusterSet, sg: np.ndarray, codes_sub: np.ndarray,
                 rows = np.flatnonzero(mask)
                 if len(rows) == 0:
                     continue
-                restored = codes_sub[sg[rows]].copy()
+                restored = sgc[rows]
                 restored[n_mask[sg[rows]]] = 4
                 lens = native.diff_encode_lengths(
                     np.full((len(rows), L), const[0], np.uint8),
@@ -100,19 +108,15 @@ def realign_ladder(cset: ClusterSet, sg: np.ndarray, codes_sub: np.ndarray,
             if absorbed.any():
                 keep = ~absorbed
                 sg, pop_a, pop_t = sg[keep], pop_a[keep], pop_t[keep]
+                sgc = sgc[keep]
         if len(sg) == 0:
             break
 
         # --- probe every (contig, offset) window fwd + rc -----------------
-        sgc = codes_sub[sg]
         with _sub(stats, "realign_probe"):
             cand_sg, cand_cl, cand_off, cand_dir, cand_pop = (
                 x.astype(np.int64) if x.dtype != np.int8 else x
-                for x in native.realign_probe(
-                    cset.ref_flat, cset.ref_ptr, sgc,
-                    np.array([s for s, _ in ranges], np.int32),
-                    cfg.dict_seg_len, thr, cfg.max_search,
-                    rc_skip_cost=thr <= 24))
+                for x in _probe(cset, sgc, ranges, cfg, thr))
 
         # --- best candidate per read (deterministic claim) ----------------
         if len(cand_sg):
@@ -130,6 +134,7 @@ def realign_ladder(cset: ClusterSet, sg: np.ndarray, codes_sub: np.ndarray,
                 claimed_total += int(claimed.sum())
                 keep = ~claimed
                 sg, pop_a, pop_t = sg[keep], pop_a[keep], pop_t[keep]
+                sgc = sgc[keep]
 
         # stopping rule (preprocess.c:219-228)
         max_new = 10_000 if big_input else 1_000
@@ -143,6 +148,23 @@ def realign_ladder(cset: ClusterSet, sg: np.ndarray, codes_sub: np.ndarray,
     ea = np.concatenate(extra_a) if len(extra_a) > 1 else extra_a[0]
     et = np.concatenate(extra_t) if len(extra_t) > 1 else extra_t[0]
     return cset, sg, ea, et
+
+
+def _probe(cset: ClusterSet, sgc: np.ndarray, ranges, cfg: ResolvedConfig,
+           thr: int):
+    """``native.realign_probe`` winners over this rank's contiguous contig
+    range (weighted by window count), all-gathered in rank order. Each
+    rank's winners are the best per read within its range, so the claim
+    lexsort over the gathered rows picks the global winner."""
+    L = cset.readlen
+    c0, c1 = dist.my_partition(np.maximum(cset.ref_lengths() - L + 1, 0))
+    lo, hi = cset.ref_ptr[c0], cset.ref_ptr[c1]
+    cand_sg, cand_cl, cand_off, cand_dir, cand_pop = native.realign_probe(
+        cset.ref_flat[lo:hi], cset.ref_ptr[c0:c1 + 1] - lo, sgc,
+        np.array([s for s, _ in ranges], np.int32), cfg.dict_seg_len, thr,
+        cfg.max_search, rc_skip_cost=thr <= 24)
+    return dist.allgather_ragged_many(
+        [cand_sg, cand_cl + np.int32(c0), cand_off, cand_dir, cand_pop])
 
 
 def probe_numpy(cset: ClusterSet, sgc: np.ndarray, cfg: ResolvedConfig,

@@ -1,0 +1,140 @@
+"""One rank of a minicom_tpu_torch process group, for
+tests/test_torch_distributed.py (CPU) and tests/test_torch_cuda.py (card),
+and ``run_group``, which starts a group of them:
+
+    python tests/_torch_dist_worker.py INIT_FILE WORLD RANK JOBS_JSON
+
+Joins a gloo group through ``file://INIT_FILE`` and runs the jobs of
+JOBS_JSON in order, printing one ``JOB {...}`` line each. Output paths may
+hold ``{rank}``. Imports no jax. Jobs:
+
+* {"op": "collectives", "out": path}: allgather_ragged_many and the sharded
+  store's rows / rows_all on the inputs of ``collective_inputs``; this
+  rank's results are saved to ``out`` (an .npz).
+* {"op": "compress", "fq", "fq2", "cfg", "out", "write_all", "decode",
+  "decode2", "decode_from", "device"}: compress on "device" (default cpu),
+  then decompress "decode_from" (default "out") when "decode" is set.
+  "write_all" sets MTC_WRITE_ALL_RANKS. Reports the kernel launches of the
+  compress.
+"""
+
+import datetime
+import json
+import os
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DTYPES = (np.bool_, np.int8, np.uint32, np.int64)
+STORE_N, STORE_L, ROWS_CHUNK = 50, 7, 5
+
+
+def collective_inputs(rank: int, world: int) -> dict:
+    """Every rank's inputs, a pure function of (rank, world): one ragged
+    array per dtype (empty on the last rank), the store matrix, this rank's
+    row request list (longer than the chunk on rank 0, empty on rank 1) and
+    the request list every rank shares."""
+    rng = np.random.default_rng(1000 * world + rank)
+    n = 0 if rank == world - 1 else 4 + 3 * rank
+    arrays = [rng.integers(0, 2, n).astype(bool),
+              rng.integers(-128, 128, n).astype(np.int8),
+              rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
+              rng.integers(-2**62, 2**62, n, dtype=np.int64)]
+    codes = np.random.default_rng(world).integers(
+        0, 4, (STORE_N, STORE_L)).astype(np.uint8)
+    req = {0: 23, 1: 0}.get(rank, 7)
+    return dict(arrays=arrays, codes=codes,
+                rows=rng.integers(0, STORE_N, req),
+                rows_all=np.random.default_rng(world + 1).integers(
+                    0, STORE_N, 31))
+
+
+def _collectives(rank, world, out):
+    from minicom_tpu_torch.parallel import distributed as dist
+    from minicom_tpu_torch.parallel.store import maybe_shard
+    inp = collective_inputs(rank, world)
+    got = dist.allgather_ragged_many(inp["arrays"])
+    store = maybe_shard(inp["codes"].copy())
+    np.savez(out, *got, rows=store.rows(inp["rows"], chunk=ROWS_CHUNK),
+             rows_all=store.rows_all(inp["rows_all"]))
+    return {"dtypes": [str(g.dtype) for g in got]}
+
+
+def _compress(rank, job):
+    from minicom_tpu_torch import CompressorConfig, compressor
+    from minicom_tpu_torch.ops import cuda
+    os.environ["MTC_WRITE_ALL_RANKS"] = "1" if job.get("write_all") else "0"
+    fmt = lambda p: p.format(rank=rank) if p else p  # noqa: E731
+    dev = job.get("device", "cpu")
+    n0 = dict(cuda.launches)
+    summary = compressor.compress(
+        job["fq"], fmt(job["out"]), CompressorConfig(threads=2, **job["cfg"]),
+        reads_path2=job.get("fq2"), device=dev)
+    launched = {k: v - n0.get(k, 0) for k, v in cuda.launches.items()}
+    if job.get("decode"):
+        compressor.decompress(fmt(job.get("decode_from", job["out"])),
+                              fmt(job["decode"]),
+                              fmt(job.get("decode2")), device=dev)
+    return {"resumed_from": summary.get("resumed_from"),
+            "archive_bytes": summary["archive_bytes"], "launched": launched}
+
+
+def run_group(tmp, tag, world, jobs, expect_ok=True):
+    """Run ``jobs`` in a group of ``world`` worker processes that meet
+    through ``tmp/<tag>.pg``; returns each rank's (returncode, output).
+    Every wait has a timeout, after which the whole group is killed."""
+    import subprocess
+    spec = os.path.join(tmp, f"{tag}.json")
+    with open(spec, "w") as f:
+        json.dump(jobs, f)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2",
+               GLOO_SOCKET_IFNAME="lo")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__),
+         os.path.join(tmp, f"{tag}.pg"), str(world), str(r), spec],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0].decode(
+                errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    res = [(p.returncode, o) for p, o in zip(procs, outs)]
+    if expect_ok and any(rc != 0 for rc, _ in res):
+        raise AssertionError("\n".join(
+            f"rank {r} (exit {rc}):\n{out[-2000:]}"
+            for r, (rc, out) in enumerate(res)))
+    return res
+
+
+def job_results(res, rank=0) -> list:
+    """The parsed ``JOB`` lines of one rank's output."""
+    return [json.loads(line[4:]) for line in res[rank][1].splitlines()
+            if line.startswith("JOB ")]
+
+
+def main():
+    init_file, world, rank, jobs = sys.argv[1:5]
+    world, rank = int(world), int(rank)
+    from minicom_tpu_torch.parallel import distributed as dist
+    dist.initialize(f"file://{init_file}", world_size=world, rank=rank,
+                    timeout=datetime.timedelta(seconds=120))
+    with open(jobs) as f:
+        jobs = json.load(f)
+    for job in jobs:
+        if job["op"] == "collectives":
+            res = _collectives(rank, world, job["out"].format(rank=rank))
+        else:
+            res = _compress(rank, job)
+        print("JOB " + json.dumps(res), flush=True)
+    dist.shutdown()
+
+
+if __name__ == "__main__":
+    main()

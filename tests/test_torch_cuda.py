@@ -5,6 +5,9 @@ card (which has no jax, so without the repo conftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -221,6 +224,37 @@ def test_order_roundtrip_on_cuda(dev, tmp_path):
     out = str(tmp_path / "o.reads")
     compressor.decompress(arc, out)
     assert open(out, "rb").read().splitlines() == lines
+
+
+def test_two_rank_roundtrip_on_cuda(dev, tmp_path):
+    """Two ranks on one card (gloo): the archive equals the single-process
+    cuda archive, each rank launched the read minimizer, the vote and the
+    contig sketch, and the sharded decode equals the single-process one."""
+    from bench import make_dataset
+    # by path: the card host may have another top-level "tests" package
+    spec = importlib.util.spec_from_file_location(
+        "_torch_dist_worker",
+        os.path.join(os.path.dirname(__file__), "_torch_dist_worker.py"))
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    job_results, run_group = worker.job_results, worker.run_group
+    fq = str(tmp_path / "in.fastq")
+    make_dataset(fq, 20_000)
+    one = str(tmp_path / "one.mtc")
+    compressor.compress(fq, one, device=dev)
+    compressor.decompress(one, one + ".reads")
+    res = run_group(str(tmp_path), "g", 2, [dict(
+        op="compress", fq=fq, cfg={}, out=str(tmp_path / "two.mtc"),
+        decode=str(tmp_path / "two.reads"), device="cuda:0")])
+    for r in range(2):
+        launched = job_results(res, r)[0]["launched"]
+        for k in ("mtc_sketch_reads", "mtc_consensus_vote",
+                  "mtc_sketch_windowed"):
+            assert launched.get(k, 0) > 0, (r, launched)
+    assert (open(tmp_path / "two.mtc", "rb").read()
+            == open(one, "rb").read())
+    assert (open(tmp_path / "two.reads", "rb").read()
+            == open(one + ".reads", "rb").read())
 
 
 def test_pe_roundtrip_on_cuda(dev, tmp_path):

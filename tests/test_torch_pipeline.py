@@ -337,19 +337,30 @@ def test_out_of_slice_archives_raise(tmp_path):
             == [bytes(r) for r in reads])
 
 
-def test_multi_process_runs_raise(tmp_path, monkeypatch):
-    """Runs in a process group of more than one process are not ported:
-    compress and decompress refuse them."""
+def test_torch_group_made_by_hand_is_honoured(tmp_path):
+    """A gloo group made with init_process_group in this process (world
+    size 1) is the process grid, over a grid set by hand, and compress and
+    decompress in it write the single-process archive and output."""
+    from minicom_tpu_torch.parallel import distributed as dist
     fq = str(tmp_path / "in.fastq")
-    write_fastq(fq, random_reads(np.random.default_rng(0), 10, 50))
+    write_fastq(fq, genome_reads(np.random.default_rng(0), 300, 60,
+                                 genome_len=2000))
     arc = str(tmp_path / "o.mtc")
     tcomp.compress(fq, arc, device="cpu")
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        tcomp.compress(fq, str(tmp_path / "p.mtc"), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        tcomp.decompress(arc, str(tmp_path / "o.reads"))
+    tcomp.decompress(arc, str(tmp_path / "o.reads"))
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path}/pg", world_size=1, rank=0)
+    try:
+        dist.set_process_grid(1, 2)
+        assert dist.process_grid() == (0, 1)
+        tcomp.compress(fq, str(tmp_path / "g.mtc"), device="cpu")
+        tcomp.decompress(str(tmp_path / "g.mtc"), str(tmp_path / "g.reads"))
+    finally:
+        dist.set_process_grid(0, 1)
+        torch.distributed.destroy_process_group()
+    assert open(tmp_path / "g.mtc", "rb").read() == open(arc, "rb").read()
+    assert (open(tmp_path / "g.reads", "rb").read()
+            == open(tmp_path / "o.reads", "rb").read())
 
 
 def test_cuda_device_needs_a_gpu(tmp_path):
