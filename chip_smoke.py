@@ -11,13 +11,19 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      the main path's shapes; kernel times are medians of CUDA-event timings.
      The rANS scans take their blocks from the streams of phase 2's archive:
      a full order-0 block (T = 8192) and a full trans2 block (T = 32768) of
-     the diff text, and a dzt literal block (A = 4, k = 4) of the consensus.
+     the diff text, and a dzt literal block (A = 4, k = 4) of the consensus,
+     each decoded by the batched kernel at B = 1. Then two batches, each
+     one launch: the first three order-0 blocks of the diff stream plus its
+     tail block, and the first two trans2 blocks; each equal to the plain
+     version and to the stream's bytes, and timed beside the sum of its
+     blocks' B = 1 launches.
   2. end to end: compress(device="cuda") + decompress of a 5,000,000-read x
      100 bp dataset (bench.py make_dataset, default profile, seed 7), exact
      roundtrip; every kernel of the path must have launched during compress.
      Then the same with codec="device" (the on-device entropy coders): exact
      roundtrip, rANS encode launched during compress and rANS decode during
-     decompress.
+     decompress: at most one decode launch per device-coded stream (two for
+     dzt, which has two coded planes).
   2o. order-preserving: compress(order=True) + decompress of the phase-2
      dataset; the decoded file must equal the input's sequence lines in
      input order, byte for byte; the cluster and merge kernels must have
@@ -54,8 +60,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      the busiest call sites of those, and the peak RSS of compress and of
      decompress (sampled from /proc/self/statm; the 5M runs each in fresh
      processes).
-The line before the last is a JSON object with each kernel's numbers; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with each kernel's numbers
+(bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
+ops_bound_ms: the integer operations its function needs, see ``OPS``, over
+16.75 T/s; bound_ms: the larger of the two); the last line is {"ok": true,
+"device": {...}}. ``rans_times.py`` runs phase 1's rANS checks alone.
 """
 
 from __future__ import annotations
@@ -133,6 +142,68 @@ def _equal(name, got, want) -> int:
     return err
 
 
+HBM_BYTES_S = 3.35e12
+# integer operations a second: a quarter of the card's 67 TFLOP/s float32
+# rate outside the tensor cores (an SM has half as many int32 lanes as
+# float32 lanes, and the float rate counts a fused multiply-add as two)
+INT_OPS_S = 16.75e12
+
+# 32-bit integer operations that each function needs for one element of its
+# work, counted on the function's definition (its plain version in ops/),
+# not on a kernel: the fewest a straightforward evaluation takes, a
+# division, a modulo or a population count taken as one operation, loads and
+# stores as none. Too few only lowers a bound, which then still holds.
+OPS = {
+    # one k-mer start of a read (k-mers of up to 62 bits lie in two words):
+    # roll the forward k-mer (2 funnel shifts, or, mask) 4, roll the reverse
+    # complement (xor 3, shift up, 2 funnel shifts, or) 5, the canonical one
+    # (64-bit compare, two selects) 4, the palindrome rule (64-bit equality,
+    # select) 3, mix32 (4 multiplies, 4 xors, 3 shifts) 11, the first
+    # minimum (compare, select rank and position) 3
+    "kmer_min": 30,
+    # one k-mer start of a contig row: the first five of the above 27, in
+    # the row (add, compare) 2, the window minimum and the covering maximum
+    # in running form 3 + 3, emitted (two compares) 2, its running count 1,
+    # within the cap and its slot 2, position and strand 2
+    "kmer_window": 42,
+    # one base of a member row: complement 1, a real base 1, its counter's
+    # index (add the column, shift-or) 2, count 1, differs from the
+    # consensus 1, sum 1; one consensus column: the first maximum of four
+    # counts (3 compares, 6 selects)
+    "vote_base": 7, "vote_column": 9,
+    # one 32-bit word pair: xor, population count, add
+    "verify_word": 3,
+    # one coding slot: f >= 1, the emit test (shift, compare, and valid) 3,
+    # the word 1, the renormalised state (shift, select) 2, quotient and
+    # remainder 2, shift, add c, or 3, keep the state on a pad slot 1,
+    # count the word 1
+    "rans_encode_slot": 14,
+    # one decode step, the symbol search apart: the slot 1, f from two
+    # cumulative entries 1, the state (shift, multiply, add, subtract) 4,
+    # refill (compare, and valid, shift, or, select) 5, the word pointer
+    # (add, clamp) 2, the context (multiply, add, modulo) 3, keep state and
+    # context on a pad step 2; the search is ceil(log2 A) compares
+    "rans_decode_step": 18,
+}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take. bytes_bound_ms: ``nbytes`` (every
+    input read once, every output written once) over the memory rate;
+    ops_bound_ms: ``ops`` integer operations (``OPS``) over the integer
+    rate; bound_ms: the longer of the two. No single PyTorch call computes
+    any of these kernels' functions, so library_ms is null."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_S * 1e3, ops / INT_OPS_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes_bound_ms=by_bytes, ops_bound_ms=by_ops,
+                library_ms=None)
+
+
 def phase1_sketch_reads(dev, report):
     rng = np.random.default_rng(1)
     n, L = 1 << 17, 100
@@ -159,13 +230,14 @@ def phase1_sketch_reads(dev, report):
         name="sketch_reads_gather", route="cuda",
         source="minicom_tpu_torch/csrc/sketch.cu",
         replaces="minicom_tpu/ops/sketch.py:146", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms,
+        **_bound(_nbytes(c, r, out), n * (L - 31 + 1) * OPS["kmer_min"]))
 
 
 def phase1_sketch_windowed(dev, report):
     rng = np.random.default_rng(2)
     k, w, cap = 31, 19, 128
-    err, ms_sum, plain_sum = 0, 0.0, 0.0
+    err, ms_sum, plain_sum, nbytes, ops = 0, 0.0, 0.0, 0, 0.0
     for Lmax in (128, 512, 2048, 8192):
         rows = _rows_tile(Lmax)
         we, mb = min(w, Lmax - k + 1), _batch_m(Lmax, k, w, cap)
@@ -198,6 +270,8 @@ def phase1_sketch_windowed(dev, report):
             *args, Lmax, k, we, mb), 5)
         ms_sum += ms
         plain_sum += plain_ms
+        nbytes += _nbytes(*args, *outs)
+        ops += float(np.maximum(lens - k + 1, 0).sum()) * OPS["kmer_window"]
         print(f"[1] sketch_windowed_compact32 rung {Lmax} ({rows} rows, "
               f"mb={mb}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
               "equal to plain and host")
@@ -205,7 +279,7 @@ def phase1_sketch_windowed(dev, report):
         name="sketch_windowed_compact32", route="cuda",
         source="minicom_tpu_torch/csrc/sketch.cu",
         replaces="minicom_tpu/ops/pallas_sketch.py:93", max_abs_err=err,
-        ms=ms_sum, plain_ms=plain_sum)
+        ms=ms_sum, plain_ms=plain_sum, **_bound(nbytes, ops))
 
 
 def phase1_consensus(dev, fastq_path, report):
@@ -253,7 +327,10 @@ def phase1_consensus(dev, fastq_path, report):
         name="consensus_vote", route="cuda",
         source="minicom_tpu_torch/csrc/consensus.cu",
         replaces="minicom_tpu/ops/consensus.py:115", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms)
+        plain_ms=plain_ms,
+        # the member rows that the vote gathers, not the whole store
+        **_bound(_nbytes(rd, col, *scratch[1:]) + M * L,
+                 M * L * OPS["vote_base"] + span * OPS["vote_column"]))
 
 
 def phase1_verify(dev, report):
@@ -278,14 +355,30 @@ def phase1_verify(dev, report):
         name="popcount_verify", route="cuda",
         source="minicom_tpu_torch/csrc/verify.cu",
         replaces="minicom_tpu/ops/pallas_verify.py:49", max_abs_err=err,
-        ms=ms, plain_ms=plain_ms)
+        ms=ms, plain_ms=plain_ms,
+        **_bound(_nbytes(da, db, out), N * W * OPS["verify_word"]))
 
 
-def _rans_block(dev, label, want, chunked, f, c, valid, tables, A, C):
+def _decode_ms(batch, only=None, reps=10):
+    """Median milliseconds of one decode launch over an uploaded batch, or
+    over its block ``only`` alone (the same buffers, one descriptor)."""
+    head, words, freq, desc, size = batch
+    full, smem = rans._plan(*batch)
+    if only is not None:
+        head, full = head[only: only + 1], full[only: only + 1]
+    full = full.to(head.device)
+    out = torch.empty(size, dtype=torch.uint8, device=head.device)
+    return _ms(lambda: cuda.launch("mtc_rans_decode", head, words,
+                                   words.shape[0], freq, full, len(full),
+                                   smem, out), reps)
+
+
+def _rans_block(dev, label, want, chunked, f, c, valid, freq_rows, A, C):
     """Kernel vs plain encode and decode of one block; the decoded symbols
     must also give back ``want`` (lanes own chunks of it when ``chunked``,
-    else every 128th symbol). Returns (encode err, decode err, encode ms,
-    plain encode ms, decode ms, plain decode ms)."""
+    else every 128th symbol). The decode is the batched kernel at B = 1 on
+    the block as a stream would hold it. Returns a dict of errors, times,
+    and the (bytes, operations) of each launch."""
     T = f.shape[0]
     args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
             for x in (f, c, valid)]
@@ -294,15 +387,16 @@ def _rans_block(dev, label, want, chunked, f, c, valid, tables, A, C):
     enc_err = max(_equal(f"{label} encode {nm} vs plain", g.cpu(), p.cpu())
                   for nm, g, p in zip(("states", "words", "counts"), enc,
                                       penc))
-    states, words, counts = enc
-    W = device_rans._wtier(max(1, int(counts.max().item())))
-    dargs = [states, words[:W].contiguous(), args[2],
-             *(torch.from_numpy(t).to(dev) for t in tables)]
-    syms = rans.rans_decode(*dargs, A, C)
-    psyms, pdec_ms = _once_ms(lambda: rans._decode_plain(*dargs, A, C))
+    states, words, counts = (x.cpu().numpy() for x in enc)
+    block = device_rans.Block(
+        len(want), T, A, C, chunked, freq_rows.reshape(-1).astype(np.uint16),
+        np.concatenate([states, counts.astype(np.uint32)]),
+        np.frombuffer(device_rans._lane_bytes(words, counts), "<u2"))
+    batch = device_rans.pack_blocks([block], dev)
+    syms = rans.rans_decode_blocks(*batch)
+    psyms, pdec_ms = _once_ms(lambda: rans._decode_blocks_plain(*batch))
     dec_err = _equal(f"{label} decode vs plain", syms.cpu(), psyms.cpu())
-    grid = syms.cpu().numpy()
-    got = (grid.T if chunked else grid).reshape(-1)[:len(want)]
+    got = device_rans.unpack_symbols([block], syms.cpu().numpy())[0]
     if not np.array_equal(got, want):
         raise AssertionError(f"{label}: decode does not give back the block")
     scratch = (torch.empty(128, dtype=torch.uint32, device=dev),
@@ -310,15 +404,58 @@ def _rans_block(dev, label, want, chunked, f, c, valid, tables, A, C):
                torch.empty(128, dtype=torch.int32, device=dev))
     enc_ms = _ms(lambda: cuda.launch("mtc_rans_encode", *args, T, *scratch),
                  10)
-    out = torch.empty((T, 128), dtype=torch.uint8, device=dev)
-    dec_ms = _ms(lambda: cuda.launch("mtc_rans_decode", dargs[0], dargs[1],
-                                     W, args[2], T, *dargs[3:], A, C, out),
-                 10)
+    dec_ms = _decode_ms(batch)
+    enc_work = (_nbytes(*args, *scratch), T * 128 * OPS["rans_encode_slot"])
+    dec_work = (_nbytes(*batch[:3], syms), T * 128 * (
+        OPS["rans_decode_step"] + (A - 1).bit_length()))
+    eb, db = _bound(*enc_work), _bound(*dec_work)
     print(f"[1] rans {label} (T={T}, A={A}, C={C}): encode kernel "
-          f"{enc_ms:.3f} ms, plain {penc_ms:.3f} ms; decode kernel "
-          f"{dec_ms:.3f} ms, plain {pdec_ms:.3f} ms; equal to plain, "
+          f"{enc_ms:.3f} ms, plain {penc_ms:.3f} ms, bytes bound "
+          f"{eb['bytes_bound_ms']:.5f} ms, operations bound "
+          f"{eb['ops_bound_ms']:.5f} ms; decode kernel (B=1) "
+          f"{dec_ms:.3f} ms = {dec_ms * 1e6 / T:.1f} ns a step, plain "
+          f"{pdec_ms:.3f} ms, bytes bound {db['bytes_bound_ms']:.5f} ms, "
+          f"operations bound {db['ops_bound_ms']:.5f} ms; equal to plain, "
           "roundtrip exact")
-    return enc_err, dec_err, enc_ms, penc_ms, dec_ms, pdec_ms
+    return dict(enc_err=enc_err, dec_err=dec_err, enc_ms=enc_ms,
+                penc_ms=penc_ms, dec_ms=dec_ms, pdec_ms=pdec_ms,
+                enc_work=enc_work, dec_work=dec_work)
+
+
+def _rans_batch(dev, label, blocks, want):
+    """``blocks`` (parsed from a stream) in one decode launch: equal to the
+    plain version on the same tensors and to ``want``, each block's bytes;
+    the launch's time beside the sum of the blocks' B = 1 launches."""
+    batch = device_rans.pack_blocks(blocks, dev)
+    n0 = cuda.launches["mtc_rans_decode"]
+    syms = rans.rans_decode_blocks(*batch)
+    if cuda.launches["mtc_rans_decode"] != n0 + 1:
+        raise AssertionError(f"{label}: not one launch")
+    psyms, plain_ms = _once_ms(lambda: rans._decode_blocks_plain(*batch))
+    _equal(f"{label} vs plain", syms.cpu(), psyms.cpu())
+    for i, (got, w) in enumerate(zip(
+            device_rans.unpack_symbols(blocks, syms.cpu().numpy()), want)):
+        if not np.array_equal(got, w):
+            raise AssertionError(f"{label}: block {i} is not the stream's")
+    ms = _decode_ms(batch)
+    each = [_decode_ms(batch, i) for i in range(len(blocks))]
+    print(f"[1] rans {label}: {len(blocks)} blocks (T = "
+          f"{[b.T for b in blocks]}) in one launch {ms:.3f} ms; one launch a "
+          f"block {sum(each):.3f} ms ({', '.join(f'{e:.3f}' for e in each)});"
+          f" plain {plain_ms:.3f} ms; equal to plain and to the stream")
+
+
+def _stream_blocks(blob, parse):
+    """The parsed blocks of a coded stream and, for each, where its symbols
+    start in the stream."""
+    n = int(np.frombuffer(blob, "<u8", 1)[0])
+    mv, off, got, blocks = memoryview(blob), 8, 0, []
+    while got < n:
+        parsed = parse(mv[off:])
+        blocks.append((parsed[0], got))
+        got += parsed[0].n
+        off += parsed[-1]
+    return blocks
 
 
 def phase1_rans(dev, streams, report):
@@ -331,8 +468,7 @@ def phase1_rans(dev, streams, report):
     blocks = []
     syms = diff[:device_rans.BLOCK]
     freq_q, f, c, valid = device_rans._encode_inputs(syms)
-    blocks.append(("order-0 diff", syms, False, f, c, valid,
-                   device_rans._tables(freq_q), 256, 1))
+    blocks.append(("order-0 diff", syms, False, f, c, valid, freq_q, 256, 1))
     tok, nt, lit = native.dz_encode_parts(streams["ref"])
     lit_codes = np.stack([(np.frombuffer(lit, np.uint8) >> (2 * i)) & 3
                           for i in range(4)], axis=-1).reshape(-1)
@@ -345,22 +481,44 @@ def phase1_rans(dev, streams, report):
         syms = remap[buf]
         A = len(alphabet)
         k, freq, f, c, valid = device_ctx_rans._encode_inputs(syms, A, k)
-        blocks.append((label, syms, True, f, c, valid,
-                       device_ctx_rans._decode_tables(freq), A, A ** k))
+        blocks.append((label, syms, True, f, c, valid, freq, A, A ** k))
     res = [_rans_block(dev, *blk) for blk in blocks]
-    enc_err, dec_err = (max(r[i] for r in res) for i in (0, 1))
-    enc_ms, penc_ms, dec_ms, pdec_ms = (sum(r[i] for r in res)
-                                        for i in range(2, 6))
+
+    # batches, one launch each: the first three order-0 blocks of the diff
+    # stream and its tail block (blocks code independently, so these are the
+    # stream's own), and the first two trans2 blocks
+    full = len(diff) // device_rans.BLOCK * device_rans.BLOCK
+    part = np.concatenate([diff[:3 * device_rans.BLOCK], diff[full:]])
+    picked = _stream_blocks(device_rans.compress(part.tobytes(), dev),
+                            device_rans._parse_block)
+    _rans_batch(dev, "order-0 batch", [b for b, _ in picked],
+                [part[at: at + b.n] for b, at in picked])
+    part = diff[:2 * device_ctx_rans.BLOCK]
+    alphabet = np.unique(part)
+    picked = _stream_blocks(device_ctx_rans.compress(part.tobytes(), 2, dev),
+                            device_ctx_rans._parse_block)
+    _rans_batch(dev, "trans2 batch", [b for b, _ in picked],
+                [np.searchsorted(alphabet, part[at: at + b.n])
+                 for b, at in picked])
+
+    def summed(key):   # the three blocks together
+        return sum(r[key] for r in res)
+
+    def bound(key):
+        return _bound(*(sum(r[key][i] for r in res) for i in (0, 1)))
+
     report["mtc_rans_encode"] = dict(
         name="rans_encode", route="cuda",
         source="minicom_tpu_torch/csrc/rans.cu",
         replaces="minicom_tpu/entropy/device_rans.py:79",
-        max_abs_err=enc_err, ms=enc_ms, plain_ms=penc_ms)
+        max_abs_err=max(r["enc_err"] for r in res), ms=summed("enc_ms"),
+        plain_ms=summed("penc_ms"), **bound("enc_work"))
     report["mtc_rans_decode"] = dict(
         name="rans_decode", route="cuda",
         source="minicom_tpu_torch/csrc/rans.cu",
         replaces="minicom_tpu/entropy/device_rans.py:123",
-        max_abs_err=dec_err, ms=dec_ms, plain_ms=pdec_ms)
+        max_abs_err=max(r["dec_err"] for r in res), ms=summed("dec_ms"),
+        plain_ms=summed("pdec_ms"), **bound("dec_work"))
 
 
 def _sorted_rows(ascii_rows):
@@ -514,7 +672,19 @@ def phase2_device_codecs(dev, tmp, fq, want, auto_bytes):
     print("[2d] kernel launches: compress " + json.dumps(enc.launched)
           + ", decompress " + json.dumps(dec_lt.launched))
     print("[2d] kernel device seconds: compress " + json.dumps(enc_k)
-          + ", decompress " + json.dumps(dec_k))
+          + ", decompress " + json.dumps(dec_k) + "; read_container stage "
+          f"{dsum['timings_s']['read_container']} s")
+    # one decode launch per coded stream, two for dzt's two planes
+    codecs = [e["codec"].split(":")[-1]
+              for e in container.read_header(arc)["streams"]]
+    most = sum(2 if c == "dzt" else c in ("trans", "trans1", "trans2")
+               for c in codecs)
+    if dec_lt.launched.get("mtc_rans_decode", 0) > most:
+        raise AssertionError(
+            f"{dec_lt.launched['mtc_rans_decode']} rANS decode launches for "
+            f"{most} coded planes: more than one launch a stream")
+    print(f"[2d] rANS decode launches {dec_lt.launched['mtc_rans_decode']} "
+          f"<= {most} coded planes of {len(codecs)} streams")
     return enc.launched, dec_lt.launched
 
 
@@ -968,12 +1138,12 @@ def phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same):
           f"took {time.perf_counter() - t0:.1f} s")
 
 
-def main() -> int:
-    if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
-        return dist_worker(sys.argv[2:])
+def phase0_device():
+    """cuda:0 with its name and power limit printed and the kernels and the
+    host library built; None where there is no CUDA device."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+        return None
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -986,7 +1156,15 @@ def main() -> int:
     print(f"[0] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
           f"CUDA {torch.version.cuda}; kernels built in {t1 - t0:.1f} s, "
           f"host library in {time.perf_counter() - t1:.1f} s")
+    return dev
 
+
+def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
+        return dist_worker(sys.argv[2:])
+    dev = phase0_device()
+    if dev is None:
+        return 1
     report = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
         fq_small = os.path.join(tmp, "same.fastq")

@@ -93,16 +93,19 @@ class StageCheckpoint:
         }
         for k, v in (extra or {}).items():
             arrays["x_" + k] = v
-        # every rank holds the same state: rank 0 alone writes it (ranks
-        # sharing one tmp name would race on its rename), the rest wait
-        if dist.process_grid()[0] == 0:
+        tmp = self._path(stage) + ".tmp"
+
+        def write():
             buf = io.BytesIO()
             np.savez(buf, **arrays)
-            tmp = self._path(stage) + ".tmp"
             with open(tmp, "wb") as f:
                 f.write(buf.getvalue())
             os.replace(tmp, self._path(stage))
-        dist.barrier()
+
+        # every rank holds the same state: rank 0 alone writes it (ranks
+        # sharing one tmp name would race on its rename), the rest wait; a
+        # failed write raises on every rank
+        dist.write_together(write, dist.process_grid()[0] == 0, tmp)
 
     def load(self, stage: str):
         """-> (ClusterSet, sg, extra dict), or None if absent, stale or

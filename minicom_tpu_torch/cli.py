@@ -12,7 +12,8 @@ on-device codecs (--codec device, trans, trans1, trans2, dzt). -d of a
 paired-end archive writes mate 2 to -O (default: the -o path + ".2").
 
 Started by ``torchrun`` (WORLD_SIZE > 1), every process joins one gloo
-group and the run shards across them; rank 0 writes the output:
+group and the run shards across them; rank 0 writes the output and prints
+the closing line:
 
     torchrun --nproc-per-node 2 -m minicom_tpu_torch.cli -r reads.fastq -o out.mtc
 """
@@ -77,13 +78,18 @@ def main(argv=None) -> int:
         return _run(args)
     from minicom_tpu_torch.parallel import distributed  # defer torch
     distributed.initialize()
-    rc = _run(args)
-    distributed.shutdown()
-    return rc
+    with distributed.closing_group():
+        return _run(args)
 
 
 def _run(args) -> int:
     from minicom_tpu_torch import compressor  # defer the torch import
+    from minicom_tpu_torch.parallel import distributed
+
+    def say(*lines):   # the closing lines: once per group
+        if distributed.process_grid()[0] == 0:
+            print(*lines, sep="\n")
+
     cfg = CompressorConfig(
         k=args.k, diff_threshold=args.e, first_minimizers=args.m,
         contig_window=args.w, num_dicts=args.s, thr_step=args.S,
@@ -98,9 +104,8 @@ def _run(args) -> int:
         out = args.o or os.path.splitext(args.d)[0] + "_dec.reads"
         summary = compressor.decompress(args.d, out, args.O,
                                         device=args.device)
-        if args.stats:
-            print(json.dumps(summary))
-        print(f"Decompressed to {out}")
+        say(*([json.dumps(summary)] if args.stats else []),
+            f"Decompressed to {out}")
         return 0
     if args.r or (args.pe1 and args.pe2):
         src = args.r or args.pe1
@@ -108,10 +113,9 @@ def _run(args) -> int:
         summary = compressor.compress(
             src, out, cfg, reads_path2=None if args.r else args.pe2,
             device=args.device)
-        if args.stats:
-            print(json.dumps(summary))
-        print(f"Compressed to {out} ({summary['archive_bytes']} bytes, "
-              f"{summary['input_bytes'] / summary['archive_bytes']:.2f}x)")
+        say(*([json.dumps(summary)] if args.stats else []),
+            f"Compressed to {out} ({summary['archive_bytes']} bytes, "
+            f"{summary['input_bytes'] / summary['archive_bytes']:.2f}x)")
         return 0
     build_parser().print_help()
     return 2

@@ -195,7 +195,8 @@ def decompress(archive_path: str, out_path: str,
     when the archive has such streams.
 
     In a group every rank assembles the whole output; rank 0 writes it
-    (every rank with MTC_WRITE_ALL_RANKS=1) and all meet at a barrier."""
+    (every rank with MTC_WRITE_ALL_RANKS=1) and all meet: a write that
+    fails raises on every rank."""
     stats = stats or StageStats()
     with stats.stage("read_container"):   # archive read + entropy decode
         header = container.read_header(archive_path)
@@ -219,12 +220,16 @@ def decompress(archive_path: str, out_path: str,
             else:
                 f1 = decode_mod.assemble_unordered(
                     meta, streams, stats.counters, pre, lambda part: None)
-        with stats.stage("write"):   # lines matrices: pure I/O
-            if pid == 0 or os.environ.get("MTC_WRITE_ALL_RANKS") == "1":
-                fastq.write_lines(out_path, f1)
-                if f2 is not None:
-                    fastq.write_lines(out_path2 or out_path + ".2", f2)
-            dist.barrier()
+
+        def write():   # lines matrices: pure I/O
+            fastq.write_lines(out_path, f1)
+            if f2 is not None:
+                fastq.write_lines(out_path2 or out_path + ".2", f2)
+
+        with stats.stage("write"):
+            dist.write_together(
+                write,
+                pid == 0 or os.environ.get("MTC_WRITE_ALL_RANKS") == "1")
         return stats.summary()
 
     # unordered, one process: finished row ranges stream to a writer thread

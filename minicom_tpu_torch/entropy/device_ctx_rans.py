@@ -10,7 +10,10 @@ ships in the header. Lanes own contiguous chunks (lane l codes symbols
 [l*T, (l+1)*T)), so each lane's context is the true previous-k window; the
 context resets to symbol 0 at chunk starts. The host builds the tables
 (float64 numpy, as the reference does) and gathers each slot's frequency
-and cumulative frequency; the scans run in ``ops/rans.py``.
+and cumulative frequency for encode; the scans run in ``ops/rans.py``.
+Decode hands the header's frequency rows to the scan as they are (the kernel
+builds its tables in shared memory) and decodes all blocks of a stream in
+one launch.
 
 Layout per block (little-endian):
   u8 version=2  u8 log2(LANES)  u8 k  u8 pad
@@ -26,9 +29,9 @@ from __future__ import annotations
 import numpy as np
 
 from minicom_tpu_torch import native
-from minicom_tpu_torch.entropy.device_rans import (_lane_bytes, _lane_words,
-                                                  _to)
-from minicom_tpu_torch.ops.rans import LANES, M, rans_decode, rans_encode
+from minicom_tpu_torch.entropy.device_rans import (Block, _lane_bytes, _to,
+                                                  decode_blocks)
+from minicom_tpu_torch.ops.rans import LANES, M, rans_encode
 
 _VERSION = 2
 BLOCK = 1 << 22            # symbols per block
@@ -133,20 +136,6 @@ def _encode_inputs(syms: np.ndarray, A: int, k: int):
     return k, freq, f_g, c_g, valid
 
 
-def _decode_tables(freq: np.ndarray):
-    """[C, A] quantized rows -> flat (freq u32 [C*A], cum u32 [C*A],
-    slot -> symbol u8 [C*M]); unused rows decode to symbol 0."""
-    C, A = freq.shape
-    counts = freq.astype(np.int64)
-    cum = np.zeros((C, A), np.int64)
-    cum[:, 1:] = np.cumsum(counts[:, :-1], axis=1)
-    slot_sym = np.zeros((C, M), np.uint8)
-    for c in np.flatnonzero(counts.sum(axis=1) > 0):
-        slot_sym[c] = np.repeat(np.arange(A, dtype=np.uint8), counts[c])
-    return (counts.reshape(-1).astype(np.uint32),
-            cum.reshape(-1).astype(np.uint32), slot_sym.reshape(-1))
-
-
 def _encode_block(syms: np.ndarray, A: int, alphabet: np.ndarray, k: int,
                   device) -> bytes:
     k, freq, f_g, c_g, valid = _encode_inputs(syms, A, k)
@@ -162,9 +151,8 @@ def _encode_block(syms: np.ndarray, A: int, alphabet: np.ndarray, k: int,
     return head + _lane_bytes(words, wcounts)
 
 
-def _decode_block(blob: memoryview, device
-                  ) -> tuple[np.ndarray, np.ndarray, int]:
-    """Returns (symbol ids, alphabet, bytes consumed)."""
+def _parse_block(blob: memoryview) -> tuple[Block, np.ndarray, int]:
+    """One block header, checked: (block, alphabet, bytes consumed)."""
     if blob[0] != _VERSION or (1 << blob[1]) != LANES:
         raise ValueError("ctx-trans stream: bad block header")
     k = blob[2]
@@ -179,25 +167,17 @@ def _decode_block(blob: memoryview, device
     C = A ** k
     n = int(np.frombuffer(blob, "<u8", 1, off)[0]); off += 8
     alphabet = np.frombuffer(blob, np.uint8, A, off).copy(); off += A
-    freq = np.frombuffer(blob, "<u2", C * A, off).reshape(C, A)
+    freq = np.frombuffer(blob, "<u2", C * A, off)
     off += 2 * C * A
-    rows = freq.sum(axis=1, dtype=np.int64)
+    rows = freq.reshape(C, A).sum(axis=1, dtype=np.int64)
     if ((rows != 0) & (rows != M)).any():
         raise ValueError("ctx-trans stream: a table row does not sum to M")
-    states = np.frombuffer(blob, "<u4", LANES, off).copy(); off += 4 * LANES
-    wcounts = np.frombuffer(blob, "<u4", LANES, off).astype(np.int64)
-    off += 4 * LANES
-    total_words = int(wcounts.sum())
+    head = np.frombuffer(blob, "<u4", 2 * LANES, off); off += 8 * LANES
+    total_words = int(head[LANES:].sum(dtype=np.int64))
     flat = np.frombuffer(blob, "<u2", total_words, off)
     off += 2 * total_words
     T = _tier_chunk(max(1, -(-n // LANES)))
-    valid = np.ascontiguousarray(np.arange(T * LANES).reshape(LANES, T).T < n)
-    grid = rans_decode(_to(states.astype(np.uint32), device),
-                       _to(_lane_words(flat, wcounts), device),
-                       _to(valid, device),
-                       *(_to(a, device) for a in _decode_tables(freq)), A, C)
-    out = grid.cpu().numpy().T.reshape(-1)[:n]   # chunked lanes -> stream
-    return out, alphabet, off
+    return Block(n, T, A, C, True, freq, head, flat), alphabet, off
 
 
 def compress(data: bytes, k: int, device) -> bytes:
@@ -216,20 +196,26 @@ def compress(data: bytes, k: int, device) -> bytes:
 
 
 def decompress(blob: bytes, device) -> bytes:
+    """Every block header is parsed and checked before anything is
+    launched, so a corrupt header anywhere in the stream raises its
+    ValueError with no work done on the device; then one launch decodes the
+    stream."""
     n = int(np.frombuffer(blob, "<u8", 1)[0])
     off = 8
-    out = []
+    blocks, alphabets = [], []
     got = 0
     mv = memoryview(blob)
     while got < n:
-        syms, alphabet, used = _decode_block(mv[off:], device)
-        out.append(alphabet[syms])
-        got += len(syms)
+        block, alphabet, used = _parse_block(mv[off:])
+        blocks.append(block)
+        alphabets.append(alphabet)
+        got += block.n
         off += used
     if got != n:
         raise ValueError(
             f"ctx-trans stream: decoded {got} symbols, header says {n}")
-    return b"".join(s.tobytes() for s in out)
+    return b"".join(a[s].tobytes() for a, s in zip(
+        alphabets, decode_blocks(blocks, device)))
 
 
 # ---- dzt: dz LZ transform + on-device entropy ------------------------------

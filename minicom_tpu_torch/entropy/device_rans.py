@@ -8,7 +8,9 @@ renormalisation, frequencies quantized on the host to M = 2^12 by
 deterministic largest-remainder rounding (float64 numpy; the table ships in
 the block header, so decode needs no float math). The scans run in
 ``ops/rans.py``: CUDA kernels on a CUDA ``device``, their plain PyTorch
-versions on ``device="cpu"``.
+versions on ``device="cpu"``. Encode codes block after block; decode parses
+every block header of a stream on the host, then decodes all its blocks in
+one kernel launch (one upload, one launch, one download per stream).
 
 Stream layout (little-endian): u64 n_symbols, then per block of at most
 BLOCK symbols:
@@ -22,10 +24,13 @@ BLOCK symbols:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from minicom_tpu_torch.ops.rans import LANES, M, rans_decode, rans_encode
+from minicom_tpu_torch.ops import rans
+from minicom_tpu_torch.ops.rans import LANES, M, rans_encode
 
 _VERSION = 1
 # symbols per block; tail blocks round T up to a pow2 tier (the tier fixes
@@ -95,16 +100,6 @@ def _to(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _lane_words(flat: np.ndarray, wcounts: np.ndarray) -> np.ndarray:
-    """Concatenated lane streams -> the [W, LANES] word matrix of decode."""
-    W = _wtier(max(1, int(wcounts.max())))
-    words = np.zeros((W, LANES), np.uint16)
-    starts = np.concatenate([[0], np.cumsum(wcounts)])
-    for l in range(LANES):
-        words[: wcounts[l], l] = flat[starts[l]: starts[l + 1]]
-    return words
-
-
 def _lane_bytes(words: np.ndarray, wcounts: np.ndarray) -> bytes:
     """Encode's [T, LANES] words -> lane streams concatenated in lane
     order."""
@@ -142,8 +137,75 @@ def _encode_block(syms: np.ndarray, device) -> bytes:
     return head + _lane_bytes(words, wcounts)
 
 
-def _decode_block(blob, device) -> tuple[np.ndarray, int]:
-    """Returns (symbols, bytes consumed)."""
+@dataclasses.dataclass
+class Block:
+    """One parsed rANS block, as its header holds it."""
+    n: int                 # symbols
+    T: int                 # steps per lane
+    A: int                 # alphabet size
+    C: int                 # contexts
+    chunked: bool          # lane l owns symbols [l*T, (l+1)*T), else l::128
+    freq: np.ndarray       # u16 [C * A] quantized rows
+    head: np.ndarray       # u32 [256]: lane states, then words per lane
+    words: np.ndarray      # u16 lane streams, concatenated in lane order
+
+
+def _upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
+    """Host arrays -> 1-d device tensors of their dtypes through one copy
+    (a byte buffer with every array on a 16-byte boundary)."""
+    offs = np.cumsum([0] + [-(-a.nbytes // 16) * 16 for a in arrays])
+    buf = np.zeros(int(offs[-1]), np.uint8)
+    for a, o in zip(arrays, offs):
+        buf[o: o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
+            np.uint8)
+    dev = torch.from_numpy(buf).to(device)
+    return [dev[o: o + a.nbytes].view(getattr(torch, a.dtype.name))
+            for a, o in zip(arrays, offs)]
+
+
+def pack_blocks(blocks: list[Block], device):
+    """The arguments of ``rans_decode_blocks`` for these blocks: (head,
+    words, freq) on ``device`` through one copy, the descriptors, the output
+    size."""
+    desc = np.zeros((len(blocks), rans.DESC_FIELDS), np.int64)
+    w_off = f_off = o_off = 0
+    for d, b in zip(desc, blocks):
+        d[:] = (w_off, len(b.words), f_off, o_off, b.n, b.T,
+                _wtier(max(1, int(b.head[LANES:].max()))), b.A, b.C,
+                b.chunked)
+        w_off += len(b.words)
+        f_off += len(b.freq)
+        o_off += b.T * LANES
+    head, words, freq = _upload(
+        [np.concatenate([b.head for b in blocks]).astype(np.uint32),
+         np.concatenate([b.words for b in blocks]).astype(np.uint16),
+         np.concatenate([b.freq for b in blocks]).astype(np.uint16)], device)
+    return (head.view(len(blocks), 2 * LANES), words, freq,
+            torch.from_numpy(desc), o_off)
+
+
+def unpack_symbols(blocks: list[Block], out: np.ndarray) -> list[np.ndarray]:
+    """Each block's n symbols in stream order from the decoded grids:
+    chunked lanes own columns of the stream, strided lanes rows."""
+    syms, off = [], 0
+    for b in blocks:
+        grid = out[off: off + b.T * LANES].reshape(b.T, LANES)
+        syms.append((grid.T if b.chunked else grid).reshape(-1)[: b.n])
+        off += b.T * LANES
+    return syms
+
+
+def decode_blocks(blocks: list[Block], device) -> list[np.ndarray]:
+    """The symbols of each block, in stream order: one upload, one
+    ``rans_decode_blocks`` call, one download."""
+    if not blocks:
+        return []
+    out = rans.rans_decode_blocks(*pack_blocks(blocks, device))
+    return unpack_symbols(blocks, out.cpu().numpy())
+
+
+def _parse_block(blob) -> tuple[Block, int]:
+    """One block header, checked: (block, bytes consumed)."""
     blob = memoryview(blob)
     if blob[0] != _VERSION or (1 << blob[1]) != LANES:
         raise ValueError("trans stream: bad block header "
@@ -153,26 +215,17 @@ def _decode_block(blob, device) -> tuple[np.ndarray, int]:
     if m != M:
         raise ValueError(f"trans stream: table size {m} != {M}")
     n = int(np.frombuffer(blob, "<u8", 1, off)[0]); off += 8
-    freq_q = np.frombuffer(blob, "<u2", 256, off).copy(); off += 512
+    freq_q = np.frombuffer(blob, "<u2", 256, off); off += 512
     if int(freq_q.sum(dtype=np.int64)) != M:
         raise ValueError("trans stream: frequency table does not sum to M")
-    states = np.frombuffer(blob, "<u4", LANES, off).copy(); off += 4 * LANES
-    wcounts = np.frombuffer(blob, "<u4", LANES, off).astype(np.int64)
-    off += 4 * LANES
-    total_words = int(wcounts.sum())
+    head = np.frombuffer(blob, "<u4", 2 * LANES, off); off += 8 * LANES
+    total_words = int(head[LANES:].sum(dtype=np.int64))
     flat = np.frombuffer(blob, "<u2", total_words, off)
     off += 2 * total_words
     T = _tier(max(1, -(-n // LANES)))
     if n > T * LANES:
         raise ValueError(f"trans stream: block of {n} symbols")
-    words = _lane_words(flat, wcounts)
-    freq, cum, slot_sym = _tables(freq_q)
-    valid = (np.arange(T * LANES) < n).reshape(T, LANES)
-    syms = rans_decode(_to(states.astype(np.uint32), device),
-                       _to(words, device), _to(valid, device),
-                       _to(freq, device), _to(cum, device),
-                       _to(slot_sym, device), 256, 1)
-    return syms.cpu().numpy().reshape(-1)[:n], off
+    return Block(n, T, 256, 1, False, freq_q, head, flat), off
 
 
 def compress(data: bytes, device) -> bytes:
@@ -185,16 +238,20 @@ def compress(data: bytes, device) -> bytes:
 
 
 def decompress(blob: bytes, device) -> bytes:
+    """Every block header is parsed and checked before anything is
+    launched, so a corrupt header anywhere in the stream raises its
+    ValueError with no work done on the device; then one launch decodes the
+    stream."""
     n = int(np.frombuffer(blob, "<u8", 1)[0])
     off = 8
-    out = []
+    blocks = []
     got = 0
     while got < n:
-        syms, used = _decode_block(memoryview(blob)[off:], device)
-        out.append(syms)
-        got += len(syms)
+        block, used = _parse_block(memoryview(blob)[off:])
+        blocks.append(block)
+        got += block.n
         off += used
     if got != n:
         raise ValueError(
             f"trans stream: decoded {got} symbols, header says {n}")
-    return b"".join(s.tobytes() for s in out)
+    return b"".join(s.tobytes() for s in decode_blocks(blocks, device))

@@ -107,7 +107,8 @@ def write_container(path: str, meta: dict, streams: Dict[str, bytes],
     stream names, weighted by raw size, and the coded streams all-gather in
     rank order. Rank 0 writes the file (every rank with
     MTC_WRITE_ALL_RANKS=1, each through its own temporary name) and all
-    ranks meet at a barrier before returning."""
+    ranks meet before returning: a write that fails on one rank removes its
+    temporary file and raises on every rank."""
     names = sorted(streams)
 
     def encode_one(name: str) -> tuple[str, bytes]:
@@ -151,9 +152,9 @@ def write_container(path: str, meta: dict, streams: Dict[str, bytes],
     header = dict(meta)
     header["streams"] = table
     hdr = json.dumps(header, separators=(",", ":"), sort_keys=True).encode()
-    write_all = os.environ.get("MTC_WRITE_ALL_RANKS") == "1"
-    if pid == 0 or write_all:
-        tmp = path + f".tmp{pid}"
+    tmp = path + f".tmp{pid}"
+
+    def write():
         with open(tmp, "wb") as f:
             f.write(MAGIC)
             f.write(struct.pack("<I", len(hdr)))
@@ -161,7 +162,9 @@ def write_container(path: str, meta: dict, streams: Dict[str, bytes],
             for b in blobs:
                 f.write(b)
         os.replace(tmp, path)
-    dist.barrier()
+
+    dist.write_together(
+        write, pid == 0 or os.environ.get("MTC_WRITE_ALL_RANKS") == "1", tmp)
     return len(MAGIC) + 4 + len(hdr) + off
 
 

@@ -36,8 +36,7 @@ _SIGS = {
     "mtc_consensus_vote": [_P, _I64, _P, _P, _I64, _I64, _INT, _P, _P, _P,
                            _P],
     "mtc_rans_encode": [_P, _P, _P, _I64, _P, _P, _P, _P],
-    "mtc_rans_decode": [_P, _P, _I64, _P, _I64, _P, _P, _P, _INT, _INT, _P,
-                        _P],
+    "mtc_rans_decode": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _P],
     "mtc_popcount_verify": [_P, _P, _I64, _I64, _P, _P],
 }
 _lib = None
@@ -75,6 +74,8 @@ def lib():
                 fn.argtypes = args
             kl.mtc_cuda_error_string.restype = ctypes.c_char_p
             kl.mtc_cuda_error_string.argtypes = [ctypes.c_int]
+            kl.mtc_rans_layout.restype = None
+            kl.mtc_rans_layout.argtypes = [ctypes.POINTER(ctypes.c_int64)]
             _lib = kl
     return _lib
 

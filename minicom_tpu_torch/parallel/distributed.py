@@ -23,7 +23,9 @@ Usage, one process per host or card:
 
 from __future__ import annotations
 
+import contextlib
 import datetime
+import os
 
 import numpy as np
 import torch
@@ -131,11 +133,18 @@ def allgather_bytes(data: bytes) -> bytes:
     return allgather_ragged(np.frombuffer(data, np.uint8)).tobytes()
 
 
+class GroupError(ValueError):
+    """An error that ``raise_together`` raised on every rank of a group at
+    the same point: the ranks are still in step, so the group can close
+    with its barrier."""
+
+
 def raise_together(err: str | None) -> None:
-    """Collective: raise ValueError on every rank when any rank passes an
-    error message (the first failing rank's message). A rank-local check
-    that sits before a collective reports through this, so no rank raises
-    alone while the others wait in the next exchange."""
+    """Collective: raise on every rank when any rank passes an error
+    message (the first failing rank's message): ``GroupError``, a
+    ValueError, in a group; a plain ValueError with one process. A
+    rank-local check that sits before a collective reports through this, so
+    no rank raises alone while the others wait in the next exchange."""
     if process_grid()[1] == 1:
         if err is not None:
             raise ValueError(err)
@@ -147,20 +156,57 @@ def raise_together(err: str | None) -> None:
     if flags.any():
         first = int(np.argmax(flags))
         start = int(lens[:first].sum())
-        raise ValueError(msgs[start:start + lens[first]].tobytes().decode(
+        raise GroupError(msgs[start:start + lens[first]].tobytes().decode(
             errors="replace"))
 
 
-def barrier() -> None:
-    """Every rank waits here for the others (no-op with one process)."""
-    if process_grid()[1] > 1:
-        tdist.barrier()
+def write_together(write, writer: bool, *tmp_paths: str) -> None:
+    """Collective in place of "the writing ranks write, then a barrier":
+    the ranks with ``writer`` call ``write()``, then all meet. Whatever a
+    write raises (a missing directory, a full disk, no memory for a buffer)
+    removes ``tmp_paths`` and raises on every rank within the exchange,
+    where a bare barrier would keep the other ranks waiting until the
+    group's timeout. With one process the exception itself propagates."""
+    err = None
+    if writer:
+        try:
+            write()
+        except Exception as e:
+            for tmp in tmp_paths:
+                with contextlib.suppress(OSError):
+                    os.unlink(tmp)
+            if process_grid()[1] == 1:
+                raise
+            err = f"{type(e).__name__}: {e}"
+    raise_together(err)
 
 
-def shutdown() -> None:
+def shutdown(in_step: bool = True) -> None:
     """Leave the group: wait for every rank, then destroy it (a rank that
-    exits while another still reads from it can abort in gloo's
-    teardown)."""
+    exits while another still reads from it can abort in gloo's teardown).
+    After an exception that this rank may have raised alone, pass
+    ``in_step=False``: no barrier, which the other ranks might never
+    reach."""
     if tdist.is_available() and tdist.is_initialized():
-        tdist.barrier()
+        if in_step:
+            tdist.barrier()
         tdist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def closing_group():
+    """Leave the group at the end of the block as its outcome allows: with
+    the barrier after a clean end or a ``GroupError`` (every rank raised
+    it), without it after any other exception, which this rank may have
+    raised alone. The exception goes on to the caller, after the group is
+    destroyed: a process that ends with a live group can abort in gloo's
+    teardown."""
+    try:
+        yield
+    except GroupError:
+        shutdown()
+        raise
+    except BaseException:
+        shutdown(in_step=False)
+        raise
+    shutdown()

@@ -127,13 +127,13 @@ def main():
                     timeout=datetime.timedelta(seconds=120))
     with open(jobs) as f:
         jobs = json.load(f)
-    for job in jobs:
-        if job["op"] == "collectives":
-            res = _collectives(rank, world, job["out"].format(rank=rank))
-        else:
-            res = _compress(rank, job)
-        print("JOB " + json.dumps(res), flush=True)
-    dist.shutdown()
+    with dist.closing_group():
+        for job in jobs:
+            if job["op"] == "collectives":
+                res = _collectives(rank, world, job["out"].format(rank=rank))
+            else:
+                res = _compress(rank, job)
+            print("JOB " + json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

@@ -3,6 +3,9 @@ on the card. Needs a CUDA device and nvcc; skipped without a device. On the
 card (which has no jax, so without the repo conftest):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
+    python -m pytest tests/test_torch_cuda.py --noconftest -q -k rans
+
+(the second: the rANS kernels alone, seconds).
 """
 
 import importlib.util
@@ -13,10 +16,11 @@ import pytest
 import torch
 
 from minicom_tpu_torch import CompressorConfig, compressor
-from minicom_tpu_torch.entropy import backend
-from minicom_tpu_torch.ops import cuda
+from minicom_tpu_torch.entropy import backend, device_ctx_rans, device_rans
+from minicom_tpu_torch.ops import cuda, rans
 from minicom_tpu_torch.ops.consensus import consensus_vote
-from minicom_tpu_torch.ops.rans import LANES, rans_decode, rans_encode
+from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
+                                        rans_decode_blocks, rans_encode)
 from minicom_tpu_torch.ops.sketch import (sketch_reads_gather,
                                           sketch_windowed_compact32)
 from minicom_tpu_torch.ops.verify import popcount_verify
@@ -161,19 +165,103 @@ def test_rans_encode_kernel_matches_plain_any_slots(dev, T):
 
 def test_rans_decode_kernel_matches_plain_corrupt_words(dev):
     """Random states and words (a corrupt stream): the clamped word reads
-    and the u32 wraparound agree."""
+    and the u32 wraparound agree, on the valid steps of a block of n
+    symbols and on its pad steps."""
     rng = np.random.default_rng(5)
-    A, C, T, W = 4, 16, 512, 64
+    A, C, T, W, n = 4, 16, 512, 64, 60_000
     freq = np.tile(np.array([1000, 96, 2000, 1000], np.uint32), C)
     cum = np.tile(np.array([0, 1000, 1096, 3096], np.uint32), C)
     slot = np.tile(np.repeat(np.arange(A, dtype=np.uint8), freq[:A]), C)
     args = [torch.from_numpy(a) for a in (
         rng.integers(0, 2**32, LANES, dtype=np.uint32),
         rng.integers(0, 2**16, (W, LANES)).astype(np.uint16),
-        rng.random((T, LANES)) < 0.95, freq, cum, slot)]
+        (np.arange(T * LANES) < n).reshape(T, LANES), freq, cum, slot)]
     want = rans_decode(*args, A, C).numpy()
     got = rans_decode(*(a.to(dev) for a in args), A, C).cpu().numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def random_batch(rng, specs, corrupt=False):
+    """A batch for ``rans_decode_blocks`` from ``specs``, one (A, C, T,
+    chunked, n) per block: random quantized rows (zero-frequency symbols in
+    every row; with C > 2 row 1 is unused and row 2 has one symbol), random
+    states, random lane streams of 0..T/4 words per lane. Not a coded stream:
+    both versions must decode any input alike. ``corrupt`` gives every lane
+    too few words, so lanes run past their streams. Returns (head, words,
+    freq, desc, out_size) as CPU tensors."""
+    heads, words, freqs = [], [], []
+    desc = np.zeros((len(specs), rans.DESC_FIELDS), np.int64)
+    w_off = f_off = o_off = 0
+    for d, (A, C, T, chunked, n) in zip(desc, specs):
+        p = rng.random((C, A)) * (rng.random((C, A)) < 0.7)
+        p[:, 0] += 1e-3
+        fq = np.stack([rng.multinomial(M, r / r.sum()) for r in p])
+        if C > 2:
+            fq[1] = 0
+            fq[2] = 0
+            fq[2, A - 1] = M
+        counts = rng.integers(0, (4 if corrupt else T // 4) + 1, LANES)
+        heads.append(np.concatenate([
+            rng.integers(0, 2**32, LANES, dtype=np.uint64), counts]
+        ).astype(np.uint32))
+        words.append(rng.integers(0, 2**16, int(counts.sum())
+                                  ).astype(np.uint16))
+        freqs.append(fq.reshape(-1).astype(np.uint16))
+        d[:] = (w_off, counts.sum(), f_off, o_off, n, T,
+                device_rans._wtier(max(1, int(counts.max()))), A, C,
+                chunked)
+        w_off += int(counts.sum())
+        f_off += C * A
+        o_off += T * LANES
+    return (torch.from_numpy(np.stack(heads)),
+            torch.from_numpy(np.concatenate(words)),
+            torch.from_numpy(np.concatenate(freqs)),
+            torch.from_numpy(desc), o_off)
+
+
+BATCHES = {   # name: [(A, C, T, chunked, n)]
+    "order0-B1": [(256, 1, 256, False, 30_000)],
+    "order0-B2-tiers": [(256, 1, 512, False, 65_536),
+                        (256, 1, 256, False, 100)],
+    "ctx-B5": [(16, 256, 512, True, 60_000), (4, 256, 256, True, 32_768),
+               (1, 1, 256, True, 5), (200, 200, 256, True, 20_000),
+               (16, 16, 1024, True, 131_072)],
+    "mixed-B2": [(256, 1, 256, False, 0), (4, 4, 256, True, 32_000)],
+    # frequency rows of exactly 128 KB: needs the shared-memory opt-in
+    "cap-B2": [(16, 4096, 256, True, 32_768), (256, 256, 256, True, 30_000)],
+}
+
+
+@pytest.mark.parametrize("corrupt", [False, True])
+@pytest.mark.parametrize("name", list(BATCHES))
+def test_rans_decode_blocks_kernel_matches_plain(dev, name, corrupt):
+    """Every block of a batch in one launch == the plain version, every
+    slot of every grid: order 0 and contexts, both lane layouts, tiers 256
+    to 1024, slot table and binary search, unused rows, lanes that run out
+    of words."""
+    batch = random_batch(np.random.default_rng(len(name) + corrupt),
+                         BATCHES[name], corrupt)
+    want = rans_decode_blocks(*batch).numpy()
+    n0 = cuda.launches["mtc_rans_decode"]
+    got = rans_decode_blocks(*(a.to(dev) for a in batch[:3]), *batch[3:])
+    assert cuda.launches["mtc_rans_decode"] == n0 + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("codec", ["trans", "trans2", "dzt"])
+def test_rans_multiblock_stream_is_one_launch(dev, codec, monkeypatch):
+    """A stream of several blocks (BLOCK shrunk): coded alike on the card
+    and the CPU, decoded by one launch (two for dzt's two planes)."""
+    monkeypatch.setattr(device_rans, "BLOCK", 1 << 15)
+    monkeypatch.setattr(device_ctx_rans, "BLOCK", 1 << 15)
+    data = (_payload("dna") if codec == "dzt" else
+            _payload("markov") + _payload("text") + _payload("skewed"))
+    blob = backend.compress(codec, data, dev)
+    assert blob == backend.compress(codec, data, torch.device("cpu"))
+    n0 = cuda.launches["mtc_rans_decode"]
+    assert backend.decompress(codec, blob, len(data), dev) == data
+    assert (cuda.launches["mtc_rans_decode"] - n0
+            == (2 if codec == "dzt" else 1))
 
 
 def test_verify_kernel_matches_plain(dev):

@@ -4,7 +4,8 @@ the port and of the JAX package, in every mode; sharded decode equal to the
 single-process decode; the collectives and the sharded read store against
 plain numpy; and two faults of the JAX package's multi-process path that the
 port repairs (checkpoint writes racing on one temporary name, and a rank
-whose FASTQ slice fails to parse leaving the others waiting).
+whose FASTQ slice fails to parse leaving the others waiting); a write that
+fails on rank 0 raising on every rank; and the CLI in a 2-rank group.
 
 Each group runs tests/_torch_dist_worker.py in subprocesses that meet
 through a ``file://`` store in the test's tmp dir; one group runs several
@@ -13,6 +14,10 @@ jobs, and the tests read its results."""
 import gzip
 import os
 import shutil
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -247,3 +252,139 @@ def test_length_changing_fastq_raises_on_every_rank(tmp_path):
         assert last.startswith("ValueError:"), out[-2000:]
         msgs.append(last)
     assert "non-uniform length" in msgs[0] and msgs[0] == msgs[1]
+
+
+def _last_lines(res):
+    """Each rank's exit code must be non-zero; returns the last line of
+    each rank's output (torch prefixes a group member's traceback lines
+    with its rank)."""
+    last = []
+    for r, (rc, out) in enumerate(res):
+        assert rc != 0, out[-2000:]
+        last.append(out.strip().splitlines()[-1].removeprefix(
+            f"[rank{r}]: "))
+    return last
+
+
+@pytest.fixture(scope="module")
+def small_fastq(tmp_path_factory):
+    fq = str(tmp_path_factory.mktemp("small") / "in.fastq")
+    write_fastq(fq, genome_reads(np.random.default_rng(5), 300, 60,
+                                 genome_len=3000))
+    return fq
+
+
+@pytest.mark.parametrize("step", ["compress", "decompress", "checkpoint"])
+def test_failed_rank0_write_raises_on_every_rank(tmp_path, small_fastq,
+                                                 step):
+    """Rank 0 alone writes the archive, the decoded file and the stage
+    snapshots. Its open fails (the directory does not exist; or, for the
+    snapshot, its temporary name is taken by a directory): every rank must
+    leave with the same error within seconds, where rank 1 used to wait in
+    a barrier for the group's timeout."""
+    missing = str(tmp_path / "no_such_dir" / "out")
+    job = dict(op="compress", fq=small_fastq, cfg={},
+               out=str(tmp_path / "ok.mtc"), decode=missing)
+    error, where = "FileNotFoundError", "no_such_dir"
+    if step == "compress":
+        job.update(out=missing, decode=None)
+    elif step == "checkpoint":
+        os.makedirs(tmp_path / "ck" / "cluster.npz.tmp")
+        job.update(cfg={"checkpoint_dir": str(tmp_path / "ck")}, decode=None)
+        error, where = "IsADirectoryError", "cluster.npz.tmp"
+    t0 = time.monotonic()
+    res = _run_group(str(tmp_path), "nodir", 2, [job], expect_ok=False)
+    assert time.monotonic() - t0 < 90      # the group's timeout is 120 s
+    last = _last_lines(res)
+    assert last[0] == last[1]
+    assert error in last[0] and where in last[0]
+    assert not [f for f in os.listdir(tmp_path) if ".tmp" in f]
+    assert os.path.exists(tmp_path / "ok.mtc") == (step == "decompress")
+
+
+def test_write_together_shares_any_exception(monkeypatch, tmp_path):
+    """Not only an OSError: whatever rank 0's write raises goes into the
+    exchange (here a group of two stands in: the exchange is recorded), and
+    the temporary file goes."""
+    tmp = tmp_path / "x.tmp0"
+    shared = []
+    monkeypatch.setattr(dist, "process_grid", lambda: (0, 2))
+    monkeypatch.setattr(dist, "raise_together", shared.append)
+
+    def write():
+        tmp.write_bytes(b"half")
+        raise MemoryError("no room for the buffer")
+
+    dist.write_together(write, True, str(tmp))
+    dist.write_together(write, False, str(tmp))     # not a writer: no call
+    assert shared == ["MemoryError: no room for the buffer", None]
+    assert not tmp.exists()
+    monkeypatch.setattr(dist, "process_grid", lambda: (0, 1))
+    with pytest.raises(MemoryError):                 # one process: as it is
+        dist.write_together(write, True, str(tmp))
+    assert not tmp.exists()
+
+
+def test_failed_write_keeps_its_exception_in_one_process(tmp_path,
+                                                         small_fastq):
+    with pytest.raises(FileNotFoundError):
+        tcomp.compress(small_fastq, str(tmp_path / "no_such_dir" / "a.mtc"),
+                       device="cpu")
+    arc = str(tmp_path / "a.mtc")
+    tcomp.compress(small_fastq, arc, CompressorConfig(order=True),
+                   device="cpu")
+    with pytest.raises(FileNotFoundError):
+        tcomp.decompress(arc, str(tmp_path / "no_such_dir" / "a.reads"))
+
+
+def _cli_group(args, world=2):
+    """``python -m minicom_tpu_torch.cli`` in ``world`` processes that meet
+    as torchrun's would (env://, a free port of this host); returns each
+    rank's (exit code, standard output) and, second, (exit code, standard
+    error)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=worker.REPO, OMP_NUM_THREADS="2",
+               GLOO_SOCKET_IFNAME="lo", MASTER_ADDR="127.0.0.1",
+               MASTER_PORT=str(port), WORLD_SIZE=str(world))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "minicom_tpu_torch.cli", *args,
+         "--device", "cpu"], cwd=worker.REPO, env=dict(env, RANK=str(r)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        errors="replace") for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return ([(p.returncode, o[0]) for p, o in zip(procs, outs)],
+            [(p.returncode, o[1]) for p, o in zip(procs, outs)])
+
+
+def test_cli_group_prints_its_closing_lines_once(tmp_path, small_fastq):
+    arc = str(tmp_path / "cli.mtc")
+    res, err = _cli_group(["-r", small_fastq, "-o", arc, "--stats"])
+    assert [rc for rc, _ in res] == [0, 0], err
+    lines = [ln for _, out in res for ln in out.splitlines()]
+    assert len([ln for ln in lines if ln.startswith("Compressed to")]) == 1
+    assert len([ln for ln in lines if ln.startswith('{"')]) == 1
+    assert res[1][1].strip() == ""
+    res, err = _cli_group(["-d", arc, "-o", str(tmp_path / "cli.reads")])
+    assert [rc for rc, _ in res] == [0, 0], err
+    assert [out.strip() for _, out in res] == [
+        f"Decompressed to {tmp_path / 'cli.reads'}", ""]
+
+
+def test_cli_group_leaves_together_after_a_failed_write(tmp_path,
+                                                        small_fastq):
+    """Both ranks exit non-zero with the shared error, and neither waits
+    for the group's timeout in the closing barrier."""
+    t0 = time.monotonic()
+    _, err = _cli_group(["-r", small_fastq, "-o",
+                         str(tmp_path / "no_such_dir" / "x.mtc")])
+    assert time.monotonic() - t0 < 90
+    last = _last_lines(err)
+    assert last[0] == last[1] and "FileNotFoundError" in last[0]

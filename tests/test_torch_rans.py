@@ -25,8 +25,10 @@ from minicom_tpu.entropy import device_rans as jrans
 from minicom_tpu_torch.entropy import backend as tbackend
 from minicom_tpu_torch.entropy import device_ctx_rans as tctx
 from minicom_tpu_torch.entropy import device_rans as trans
-from minicom_tpu_torch.ops import cuda
-from minicom_tpu_torch.ops.rans import LANES, M, rans_decode, rans_encode
+from minicom_tpu_torch.ops import cuda, rans
+from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
+                                        rans_decode_blocks, rans_encode)
+from tests.test_torch_cuda import random_batch
 
 CPU = torch.device("cpu")
 _LOCK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -168,6 +170,100 @@ def test_context_programs_match_jax(k, A):
     np.testing.assert_array_equal(got.T.reshape(-1)[:n], syms)
 
 
+def _np_tables(fq):
+    """[C, A] quantized rows -> (freq, cum, slot_sym) as the JAX package's
+    host code builds them: np.repeat per used row, zeros for unused rows."""
+    C, A = fq.shape
+    cum = np.zeros((C, A), np.int64)
+    cum[:, 1:] = np.cumsum(fq[:, :-1], axis=1)
+    slot = np.zeros((C, M), np.uint8)
+    for c in np.flatnonzero(fq.sum(axis=1) > 0):
+        slot[c] = np.repeat(np.arange(A, dtype=np.uint8), fq[c])
+    return (fq.reshape(-1).astype(np.uint32), cum.reshape(-1).astype(
+        np.uint32), slot.reshape(-1))
+
+
+@pytest.mark.parametrize("k,A", [(0, 256), (1, 16), (2, 16), (4, 4),
+                                 (1, 200)])
+def test_plain_decode_blocks_match_jax_programs(k, A):
+    """A batch of three blocks of different tiers through the plain
+    ``rans_decode_blocks`` == the JAX ``_decode_program`` of each block on
+    the word matrix, mask and tables the JAX host code would hand it, every
+    slot. Order 0 (k = 0: strided lanes, device_rans) and the context coder
+    (chunked lanes, device_ctx_rans); rows with zero-frequency symbols, an
+    unused row, a one-symbol row; random states and words."""
+    C, chunked = A ** k, k > 0
+    specs = [(A, C, 512, chunked, 60_000), (A, C, 256, chunked, 1_000),
+             (A, C, 256, chunked, 32_768)]
+    head, words, freq, desc, size = random_batch(
+        np.random.default_rng(10 * k + A), specs)
+    out = rans_decode_blocks(head, words, freq, desc, size).numpy()
+    for b, (d, (_, _, T, _, n)) in enumerate(zip(desc.numpy(), specs)):
+        counts = head[b, LANES:].numpy().astype(np.int64)
+        starts = d[rans.D_WORDS] + np.concatenate([[0], np.cumsum(counts)])
+        wm = np.zeros((d[rans.D_W], LANES), np.uint16)
+        for l in range(LANES):
+            wm[: counts[l], l] = words.numpy()[starts[l]: starts[l + 1]]
+        idx = np.arange(T * LANES)
+        valid = (idx.reshape(LANES, T).T if chunked
+                 else idx.reshape(T, LANES)) < n
+        fq = freq.numpy()[d[rans.D_FREQ]: d[rans.D_FREQ] + C * A]
+        prog = jctx._decode_program(T, k, A) if chunked \
+            else jrans._decode_program(T)
+        want = np.asarray(prog(
+            jnp.asarray(head[b, :LANES].numpy()), jnp.asarray(wm),
+            jnp.asarray(np.ascontiguousarray(valid)),
+            *(jnp.asarray(t) for t in _np_tables(
+                fq.reshape(C, A).astype(np.int64)))))
+        got = out[d[rans.D_OUT]: d[rans.D_OUT] + T * LANES].reshape(T, LANES)
+        np.testing.assert_array_equal(got, want, err_msg=f"block {b}")
+
+
+@pytest.mark.parametrize("rows", [
+    [[5, 0, 4091, 0]],                       # zero-frequency symbols
+    [[0, 0, 0, 0], [1, 1, 1, 4093]],         # an unused row
+    [[0, 4096, 0], [4096, 0, 0], [0, 0, 4096]],   # one symbol, f = M
+    [[4096]], [[0]],                         # A = 1, used and unused
+    [[0, 0, 1, 0, 4094, 0, 1, 0]],
+])
+def test_plain_symbol_search_equals_slot_table(rows):
+    """The tables the kernel derives from the frequency rows (a search in
+    the cumulative row: the count of cum[j] <= slot) == the slot -> symbol
+    lookup, frequencies and cumulative frequencies of the host tables."""
+    fq = np.array(rows, np.int64)
+    C, A = fq.shape
+    got = rans._tables_plain(_t(fq.reshape(-1).astype(np.uint16)), A, C)
+    for g, w in zip(got, _np_tables(fq)):
+        np.testing.assert_array_equal(g.numpy(), w.astype(np.int64))
+
+
+def test_decode_blocks_checks_its_inputs():
+    head, words, freq, desc, size = random_batch(
+        np.random.default_rng(0), [(4, 4, 256, True, 1000)])
+    for col, value in ((rans.D_A, 0), (rans.D_A, 257), (rans.D_C, 1 << 15),
+                       (rans.D_T, 0), (rans.D_W, 0), (rans.D_N, 256 * 128 + 1),
+                       (rans.D_NWORDS, len(words) + 1), (rans.D_FREQ, 1),
+                       (rans.D_OUT, 1)):
+        bad = desc.clone()
+        bad[0, col] = value
+        with pytest.raises(ValueError):
+            rans_decode_blocks(head, words, freq, bad, size)
+    with pytest.raises(ValueError, match="sums"):   # a row off M
+        rans_decode_blocks(head, words, _t(freq.numpy() + 1), desc, size)
+    with pytest.raises(ValueError):                 # head of another batch
+        rans_decode_blocks(head[:0], words, freq, desc, size)
+    with pytest.raises(ValueError, match="lane layout"):   # holes in the
+        holes = torch.ones((4, LANES), dtype=torch.bool)   # mask
+        holes[1, 5] = False
+        fr = torch.zeros(256, dtype=torch.uint32)
+        fr[7] = M
+        rans_decode(torch.zeros(LANES, dtype=torch.uint32),
+                    torch.zeros((1, LANES), dtype=torch.uint16), holes, fr,
+                    torch.zeros(256, dtype=torch.uint32),
+                    torch.full((M,), 7, dtype=torch.uint8), 256, 1)
+    assert rans_decode_blocks(head[:0], words, freq, desc[:0], 0).shape == (0,)
+
+
 def test_scan_wrappers_check_their_inputs():
     z = torch.zeros((4, LANES), dtype=torch.uint32)
     v = torch.ones((4, LANES), dtype=torch.bool)
@@ -263,6 +359,70 @@ def test_corrupt_block_headers_raise(codec, offset, value):
     blob = bytearray(tbackend.compress(codec, data, CPU))
     blob[offset] = value
     with pytest.raises(ValueError):
+        tbackend.decompress(codec, bytes(blob), len(data), CPU)
+
+
+@pytest.fixture
+def small_blocks(monkeypatch):
+    """BLOCK of both packages' coders shrunk to 2^16 symbols, so a short
+    stream has several blocks and the plain scans stay short."""
+    for mod in (jrans, jctx, trans, tctx):
+        monkeypatch.setattr(mod, "BLOCK", 1 << 16)
+
+
+@pytest.mark.parametrize("codec", ["trans", "trans1", "trans2"])
+def test_multiblock_streams_identical(small_blocks, codec):
+    """Two full blocks (T = 512) and a tail of another tier (T = 256): the
+    port's stream == the JAX stream, decoded both ways; the port decodes it
+    in one ``rans_decode_blocks`` call."""
+    data = (_payload("markov") + _payload("text") + _payload("skewed")
+            + _payload("markov", 1) + _payload("uniform"))[:150_000]
+    calls = []
+    real = rans.rans_decode_blocks
+
+    def counted(*a, **kw):
+        calls.append(a[3].shape[0])
+        return real(*a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(rans, "rans_decode_blocks", counted)
+        _both_ways(codec, data)
+    assert calls == [3]
+
+
+def test_multiblock_dzt_identical(small_blocks):
+    _both_ways("dzt", _packed_dna(2))
+
+
+_BAD_HEADERS = {   # codec: [(offset in the block, bytes, message)]
+    "trans": [(0, b"\x07", "bad block header"), (1, b"\x06", "bad block"),
+              (2, b"\x00\x20", "table size"), (12, b"\xff", "sum to M"),
+              (4, b"\x00" * 7 + b"\x01", "block of")],
+    "trans1": [(0, b"\x07", "bad block header"), (1, b"\x06", "bad block"),
+               (4, b"\x00\x20", "table size"), (2, b"\x09", "order 9"),
+               (6, b"\x00\x00", "alphabet 0"),
+               (16 + 16 + 1, b"\xff", "row does not sum")],
+}
+
+
+@pytest.mark.parametrize("codec,case", [
+    (c, i) for c, cases in _BAD_HEADERS.items() for i in range(len(cases))])
+def test_corrupt_second_block_header_raises_before_any_decode(
+        small_blocks, monkeypatch, codec, case):
+    """Every header check of both coders, with the bad header in the second
+    block of the stream: its ValueError, and nothing handed to the scan."""
+    data = _payload("markov") + _payload("markov", 1)
+    blob = bytearray(tbackend.compress(codec, data, CPU))
+    parse = trans._parse_block if codec == "trans" else tctx._parse_block
+    second = 8 + parse(memoryview(bytes(blob))[8:])[-1]
+    off, value, message = _BAD_HEADERS[codec][case]
+    blob[second + off: second + off + len(value)] = value
+
+    def never(*a, **kw):
+        raise AssertionError("the scan was reached")
+
+    monkeypatch.setattr(rans, "rans_decode_blocks", never)
+    with pytest.raises(ValueError, match=message):
         tbackend.decompress(codec, bytes(blob), len(data), CPU)
 
 
