@@ -12,18 +12,20 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      The rANS scans take their blocks from the streams of phase 2's archive:
      a full order-0 block (T = 8192) and a full trans2 block (T = 32768) of
      the diff text, and a dzt literal block (A = 4, k = 4) of the consensus,
-     each decoded by the batched kernel at B = 1. Then two batches, each
-     one launch: the first three order-0 blocks of the diff stream plus its
-     tail block, and the first two trans2 blocks; each equal to the plain
-     version and to the stream's bytes, and timed beside the sum of its
-     blocks' B = 1 launches.
+     each coded and decoded by the batched kernels at B = 1, the coded
+     block also equal to its bytes in the stream that compress writes. Then
+     two batches, each one encode launch and one decode launch: the first
+     three order-0 blocks of the diff stream plus its tail block, and the
+     first two trans2 blocks; each equal to the plain version and to the
+     stream's bytes, and timed beside the sum of its blocks' B = 1 launches.
   2. end to end: compress(device="cuda") + decompress of a 5,000,000-read x
      100 bp dataset (bench.py make_dataset, default profile, seed 7), exact
      roundtrip; every kernel of the path must have launched during compress.
      Then the same with codec="device" (the on-device entropy coders): exact
      roundtrip, rANS encode launched during compress and rANS decode during
      decompress: at most one decode launch per device-coded stream (two for
-     dzt, which has two coded planes).
+     dzt, which has two coded planes), and at most one encode launch per
+     coded plane of every candidate codec tried for a stream.
   2o. order-preserving: compress(order=True) + decompress of the phase-2
      dataset; the decoded file must equal the input's sequence lines in
      input order, byte for byte; the cluster and merge kernels must have
@@ -373,86 +375,156 @@ def _decode_ms(batch, only=None, reps=10):
                                    smem, out), reps)
 
 
-def _rans_block(dev, label, want, chunked, f, c, valid, freq_rows, A, C):
-    """Kernel vs plain encode and decode of one block; the decoded symbols
-    must also give back ``want`` (lanes own chunks of it when ``chunked``,
-    else every 128th symbol). The decode is the batched kernel at B = 1 on
-    the block as a stream would hold it. Returns a dict of errors, times,
-    and the (bytes, operations) of each launch."""
-    T = f.shape[0]
-    args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-            for x in (f, c, valid)]
-    enc = rans.rans_encode(*args)
-    penc, penc_ms = _once_ms(lambda: rans._encode_plain(*args))
-    enc_err = max(_equal(f"{label} encode {nm} vs plain", g.cpu(), p.cpu())
-                  for nm, g, p in zip(("states", "words", "counts"), enc,
-                                      penc))
-    states, words, counts = (x.cpu().numpy() for x in enc)
-    block = device_rans.Block(
-        len(want), T, A, C, chunked, freq_rows.reshape(-1).astype(np.uint16),
-        np.concatenate([states, counts.astype(np.uint32)]),
-        np.frombuffer(device_rans._lane_bytes(words, counts), "<u2"))
+def _encode_ms(args, only=None, reps=10):
+    """The same for one encode launch over uploaded symbols and rows."""
+    syms, freq, _ = args
+    full, smem, size = rans._plan_encode(*args)
+    if only is not None:
+        full = full[only: only + 1]
+    full = full.to(syms.device)
+    head = torch.empty((len(full), 256), dtype=torch.uint32,
+                       device=syms.device)
+    scratch, words = (torch.empty(size, dtype=torch.uint16,
+                                  device=syms.device) for _ in range(2))
+    return _ms(lambda: cuda.launch("mtc_rans_encode", syms, freq, full,
+                                   len(full), smem, head, scratch, words),
+               reps)
+
+
+def _encode_checked(label, models, args):
+    """One encode launch over ``args`` (``pack_symbols`` of ``models``),
+    equal to the plain version on the same tensors: states, counts, and
+    every block's lane streams. Returns (the coded blocks, max |diff|, the
+    plain version's milliseconds)."""
+    n0 = cuda.launches["mtc_rans_encode"]
+    enc = rans.rans_encode_blocks(*args)
+    if cuda.launches["mtc_rans_encode"] != n0 + 1:
+        raise AssertionError(f"{label}: not one encode launch")
+    full, _, size = rans._plan_encode(*args)
+    penc, plain_ms = _once_ms(lambda: rans._encode_blocks_plain(
+        args[0], args[1], full, size))
+    coded, pcoded = (device_rans.unpack_words(models, args[2], *e)
+                     for e in (enc, penc))
+    err = max(_equal(f"{label} encode {nm} of block {i} vs plain",
+                     getattr(g, nm), getattr(p, nm))
+              for i, (g, p) in enumerate(zip(coded, pcoded))
+              for nm in ("head", "words"))
+    return coded, err, plain_ms
+
+
+def _same_block(label, got, want):
+    """A coded block equal to one parsed from a stream."""
+    for nm in ("n", "T", "A", "C", "chunked"):
+        if getattr(got, nm) != getattr(want, nm):
+            raise AssertionError(f"{label}: {nm} {getattr(got, nm)} != the "
+                                 f"stream's {getattr(want, nm)}")
+    for nm in ("freq", "head", "words"):
+        _equal(f"{label} {nm} vs the stream", getattr(got, nm),
+               getattr(want, nm))
+
+
+def _coder(dev, buf, k):
+    """What the codec with order ``k`` (None: order-0 "trans") makes of the
+    bytes ``buf``: (symbol ids, one model per block, the blocks parsed from
+    the stream that compress writes)."""
+    if k is None:
+        syms, step, model = buf, device_rans.BLOCK, device_rans._model
+        blob = device_rans.compress(buf.tobytes(), dev)
+        parse = device_rans._parse_block
+    else:
+        alphabet, syms = device_ctx_rans.remap(buf)
+        step = device_ctx_rans.BLOCK
+        model = lambda part: device_ctx_rans._model(  # noqa: E731
+            part, len(alphabet), k)
+        blob = device_ctx_rans.compress(buf.tobytes(), k, dev)
+        parse = device_ctx_rans._parse_block
+    models = [model(syms[i: i + step]) for i in range(0, len(syms), step)]
+    return syms, models, _stream_blocks(blob, parse)
+
+
+def _rans_block(dev, label, buf, k):
+    """Kernel vs plain encode and decode of one block, both batched kernels
+    at B = 1, from the block's symbols and quantized rows as the codec
+    makes them; the coded block must equal its bytes in the stream that
+    compress writes, and the decoded symbols the block's. Returns a dict of
+    errors, times, and the (bytes, operations) of each launch."""
+    syms, models, in_stream = _coder(dev, buf, k)
+    model = models[0]
+    T, A, C = model.T, model.A, model.C
+    args = device_rans.pack_symbols(syms, models, dev)
+    (block,), enc_err, penc_ms = _encode_checked(label, models, args)
+    _same_block(label, block, in_stream[0])
     batch = device_rans.pack_blocks([block], dev)
-    syms = rans.rans_decode_blocks(*batch)
-    psyms, pdec_ms = _once_ms(lambda: rans._decode_blocks_plain(*batch))
-    dec_err = _equal(f"{label} decode vs plain", syms.cpu(), psyms.cpu())
-    got = device_rans.unpack_symbols([block], syms.cpu().numpy())[0]
-    if not np.array_equal(got, want):
+    out = rans.rans_decode_blocks(*batch)
+    pout, pdec_ms = _once_ms(lambda: rans._decode_blocks_plain(*batch))
+    dec_err = _equal(f"{label} decode vs plain", out.cpu(), pout.cpu())
+    got = device_rans.unpack_symbols([block], out.cpu().numpy())[0]
+    if not np.array_equal(got, syms):
         raise AssertionError(f"{label}: decode does not give back the block")
-    scratch = (torch.empty(128, dtype=torch.uint32, device=dev),
-               torch.empty((T, 128), dtype=torch.uint16, device=dev),
-               torch.empty(128, dtype=torch.int32, device=dev))
-    enc_ms = _ms(lambda: cuda.launch("mtc_rans_encode", *args, T, *scratch),
-                 10)
+    enc_ms = _encode_ms(args)
     dec_ms = _decode_ms(batch)
-    enc_work = (_nbytes(*args, *scratch), T * 128 * OPS["rans_encode_slot"])
-    dec_work = (_nbytes(*batch[:3], syms), T * 128 * (
+    # what the function must move whatever implements it: the symbols and
+    # the frequency rows in, the states, the counts and the words out
+    enc_work = (model.n + 2 * C * A + 4 * 256 + 2 * len(block.words),
+                T * 128 * OPS["rans_encode_slot"])
+    dec_work = (_nbytes(*batch[:3], out), T * 128 * (
         OPS["rans_decode_step"] + (A - 1).bit_length()))
     eb, db = _bound(*enc_work), _bound(*dec_work)
-    print(f"[1] rans {label} (T={T}, A={A}, C={C}): encode kernel "
-          f"{enc_ms:.3f} ms, plain {penc_ms:.3f} ms, bytes bound "
-          f"{eb['bytes_bound_ms']:.5f} ms, operations bound "
+    print(f"[1] rans {label} (T={T}, A={A}, C={C}, {len(block.words)} "
+          f"words): encode kernel (B=1) {enc_ms:.3f} ms = "
+          f"{enc_ms * 1e6 / T:.1f} ns a step, plain {penc_ms:.3f} ms, bytes "
+          f"bound {eb['bytes_bound_ms']:.5f} ms, operations bound "
           f"{eb['ops_bound_ms']:.5f} ms; decode kernel (B=1) "
           f"{dec_ms:.3f} ms = {dec_ms * 1e6 / T:.1f} ns a step, plain "
           f"{pdec_ms:.3f} ms, bytes bound {db['bytes_bound_ms']:.5f} ms, "
-          f"operations bound {db['ops_bound_ms']:.5f} ms; equal to plain, "
-          "roundtrip exact")
+          f"operations bound {db['ops_bound_ms']:.5f} ms; equal to plain "
+          "and to the stream, roundtrip exact")
     return dict(enc_err=enc_err, dec_err=dec_err, enc_ms=enc_ms,
                 penc_ms=penc_ms, dec_ms=dec_ms, pdec_ms=pdec_ms,
                 enc_work=enc_work, dec_work=dec_work)
 
 
-def _rans_batch(dev, label, blocks, want):
-    """``blocks`` (parsed from a stream) in one decode launch: equal to the
-    plain version on the same tensors and to ``want``, each block's bytes;
-    the launch's time beside the sum of the blocks' B = 1 launches."""
+def _rans_batch(dev, label, buf, k):
+    """Every block of the bytes ``buf`` in one encode launch and one decode
+    launch: each equal to the plain version on the same tensors and to the
+    stream that compress writes of ``buf``; each launch's time beside the
+    sum of the blocks' B = 1 launches."""
+    syms, models, in_stream = _coder(dev, buf, k)
+    args = device_rans.pack_symbols(syms, models, dev)
+    blocks, _, penc_ms = _encode_checked(label, models, args)
+    for i, (got, want) in enumerate(zip(blocks, in_stream)):
+        _same_block(f"{label} block {i}", got, want)
     batch = device_rans.pack_blocks(blocks, dev)
     n0 = cuda.launches["mtc_rans_decode"]
-    syms = rans.rans_decode_blocks(*batch)
+    out = rans.rans_decode_blocks(*batch)
     if cuda.launches["mtc_rans_decode"] != n0 + 1:
-        raise AssertionError(f"{label}: not one launch")
-    psyms, plain_ms = _once_ms(lambda: rans._decode_blocks_plain(*batch))
-    _equal(f"{label} vs plain", syms.cpu(), psyms.cpu())
-    for i, (got, w) in enumerate(zip(
-            device_rans.unpack_symbols(blocks, syms.cpu().numpy()), want)):
-        if not np.array_equal(got, w):
-            raise AssertionError(f"{label}: block {i} is not the stream's")
-    ms = _decode_ms(batch)
-    each = [_decode_ms(batch, i) for i in range(len(blocks))]
-    print(f"[1] rans {label}: {len(blocks)} blocks (T = "
-          f"{[b.T for b in blocks]}) in one launch {ms:.3f} ms; one launch a "
-          f"block {sum(each):.3f} ms ({', '.join(f'{e:.3f}' for e in each)});"
-          f" plain {plain_ms:.3f} ms; equal to plain and to the stream")
+        raise AssertionError(f"{label}: not one decode launch")
+    pout, pdec_ms = _once_ms(lambda: rans._decode_blocks_plain(*batch))
+    _equal(f"{label} decode vs plain", out.cpu(), pout.cpu())
+    got = np.concatenate(device_rans.unpack_symbols(blocks,
+                                                    out.cpu().numpy()))
+    if not np.array_equal(got, syms):
+        raise AssertionError(f"{label}: decode does not give back the "
+                             "stream")
+    for what, ms, each, plain_ms in (
+            ("encode", _encode_ms(args),
+             [_encode_ms(args, i) for i in range(len(blocks))], penc_ms),
+            ("decode", _decode_ms(batch),
+             [_decode_ms(batch, i) for i in range(len(blocks))], pdec_ms)):
+        print(f"[1] rans {label} {what}: {len(blocks)} blocks (T = "
+              f"{[b.T for b in blocks]}) in one launch {ms:.3f} ms; one "
+              f"launch a block {sum(each):.3f} ms "
+              f"({', '.join(f'{e:.3f}' for e in each)}); plain "
+              f"{plain_ms:.3f} ms; equal to plain and to the stream")
 
 
 def _stream_blocks(blob, parse):
-    """The parsed blocks of a coded stream and, for each, where its symbols
-    start in the stream."""
+    """The parsed blocks of a coded stream."""
     n = int(np.frombuffer(blob, "<u8", 1)[0])
     mv, off, got, blocks = memoryview(blob), 8, 0, []
     while got < n:
         parsed = parse(mv[off:])
-        blocks.append((parsed[0], got))
+        blocks.append(parsed[0])
         got += parsed[0].n
         off += parsed[-1]
     return blocks
@@ -465,41 +537,23 @@ def phase1_rans(dev, streams, report):
     if len(diff) < 1 << 22:
         raise AssertionError(f"diff stream of {len(diff)} B: want a full "
                              "trans2 block")
-    blocks = []
-    syms = diff[:device_rans.BLOCK]
-    freq_q, f, c, valid = device_rans._encode_inputs(syms)
-    blocks.append(("order-0 diff", syms, False, f, c, valid, freq_q, 256, 1))
     tok, nt, lit = native.dz_encode_parts(streams["ref"])
     lit_codes = np.stack([(np.frombuffer(lit, np.uint8) >> (2 * i)) & 3
-                          for i in range(4)], axis=-1).reshape(-1)
-    for label, buf, k in (("trans2 diff", diff[:device_ctx_rans.BLOCK], 2),
-                          ("dzt literals",
-                           lit_codes[:device_ctx_rans.BLOCK], 4)):
-        alphabet = np.unique(buf)
-        remap = np.zeros(256, np.uint8)
-        remap[alphabet] = np.arange(len(alphabet), dtype=np.uint8)
-        syms = remap[buf]
-        A = len(alphabet)
-        k, freq, f, c, valid = device_ctx_rans._encode_inputs(syms, A, k)
-        blocks.append((label, syms, True, f, c, valid, freq, A, A ** k))
-    res = [_rans_block(dev, *blk) for blk in blocks]
+                          for i in range(4)], axis=-1).reshape(-1).astype(
+                              np.uint8)
+    res = [_rans_block(dev, label, buf, k) for label, buf, k in (
+        ("order-0 diff", diff[:device_rans.BLOCK], None),
+        ("trans2 diff", diff[:device_ctx_rans.BLOCK], 2),
+        ("dzt literals", lit_codes[:device_ctx_rans.BLOCK], 4))]
 
-    # batches, one launch each: the first three order-0 blocks of the diff
-    # stream and its tail block (blocks code independently, so these are the
-    # stream's own), and the first two trans2 blocks
+    # batches, one launch each way: the first three order-0 blocks of the
+    # diff stream and its tail block (blocks code independently, so these
+    # are the stream's own), and the first two trans2 blocks
     full = len(diff) // device_rans.BLOCK * device_rans.BLOCK
-    part = np.concatenate([diff[:3 * device_rans.BLOCK], diff[full:]])
-    picked = _stream_blocks(device_rans.compress(part.tobytes(), dev),
-                            device_rans._parse_block)
-    _rans_batch(dev, "order-0 batch", [b for b, _ in picked],
-                [part[at: at + b.n] for b, at in picked])
-    part = diff[:2 * device_ctx_rans.BLOCK]
-    alphabet = np.unique(part)
-    picked = _stream_blocks(device_ctx_rans.compress(part.tobytes(), 2, dev),
-                            device_ctx_rans._parse_block)
-    _rans_batch(dev, "trans2 batch", [b for b, _ in picked],
-                [np.searchsorted(alphabet, part[at: at + b.n])
-                 for b, at in picked])
+    _rans_batch(dev, "order-0 batch",
+                np.concatenate([diff[:3 * device_rans.BLOCK], diff[full:]]),
+                None)
+    _rans_batch(dev, "trans2 batch", diff[:2 * device_ctx_rans.BLOCK], 2)
 
     def summed(key):   # the three blocks together
         return sum(r[key] for r in res)
@@ -674,17 +728,33 @@ def phase2_device_codecs(dev, tmp, fq, want, auto_bytes):
     print("[2d] kernel device seconds: compress " + json.dumps(enc_k)
           + ", decompress " + json.dumps(dec_k) + "; read_container stage "
           f"{dsum['timings_s']['read_container']} s")
-    # one decode launch per coded stream, two for dzt's two planes
-    codecs = [e["codec"].split(":")[-1]
-              for e in container.read_header(arc)["streams"]]
-    most = sum(2 if c == "dzt" else c in ("trans", "trans1", "trans2")
-               for c in codecs)
-    if dec_lt.launched.get("mtc_rans_decode", 0) > most:
-        raise AssertionError(
-            f"{dec_lt.launched['mtc_rans_decode']} rANS decode launches for "
-            f"{most} coded planes: more than one launch a stream")
-    print(f"[2d] rANS decode launches {dec_lt.launched['mtc_rans_decode']} "
-          f"<= {most} coded planes of {len(codecs)} streams")
+
+    def planes(codec):   # coded planes of a codec: launches it may make
+        base = codec.split(":")[-1]
+        return 2 if base == "dzt" else int(base in ("trans", "trans1",
+                                                    "trans2"))
+
+    # one decode launch per coded plane of the codec a stream was given;
+    # one encode launch per coded plane of every candidate tried for it
+    table = container.read_header(arc)["streams"]
+    most_dec = sum(planes(e["codec"]) for e in table)
+    most_enc = sum(planes(c) for e in table for c in
+                   container._auto_candidates(e["name"], e["rlen"], "device"))
+    for what, lt, most in (("decode", dec_lt, most_dec),
+                           ("encode", enc, most_enc)):
+        n = lt.launched.get(f"mtc_rans_{what}", 0)
+        if n > most:
+            raise AssertionError(f"{n} rANS {what} launches for {most} "
+                                 "coded planes: more than one launch a plane")
+    print(f"[2d] rANS encode launches {enc.launched['mtc_rans_encode']} <= "
+          f"{most_enc} coded planes of the candidates tried for "
+          f"{len(table)} streams: {enc_k['mtc_rans_encode']:.6f} device s, "
+          f"entropy stage {summary['timings_s']['entropy']} s; rANS decode "
+          f"launches {dec_lt.launched['mtc_rans_decode']} <= {most_dec} "
+          f"coded planes: {dec_k['mtc_rans_decode']:.6f} device s")
+    if N_READS == 5_000_000 and (auto_bytes, nb) != (13_012_858, 13_165_428):
+        raise AssertionError(f"archives of {auto_bytes} B (auto) and {nb} B "
+                             "(device): want 13012858 and 13165428")
     return enc.launched, dec_lt.launched
 
 

@@ -10,29 +10,57 @@
 //     contexts over an alphabet of A symbols, lane l owns a contiguous chunk).
 // Order-0 is the context coder with C = 1 context and A = 256, so one encode
 // and one decode kernel serve both; only the lane layout (strided or chunked)
-// differs. Encode takes the per-slot frequency f and cumulative c already
-// gathered on the host, as the JAX context program does. Decode takes the
-// block headers as they lie in a stream (u16 frequency rows, states, words
-// per lane, the lane streams) and builds its own tables.
+// differs. Both take a stream as it lies in memory: encode the symbol ids
+// (u8) and each block's u16 frequency rows, decode the block headers (u16
+// frequency rows, states, words per lane, the lane streams); both build
+// their own tables in shared memory, and one launch handles every rANS
+// block of a stream: grid = blocks, each CUDA block reads its own descriptor
+// row, so a stream takes the time of its longest block.
 //
 // State machine (32-bit state in [2^16, 2^32), 16-bit renormalisation,
 // M = 2^12): all arithmetic is uint32_t, so decode's f * (x >> 12) + slot - c
 // wraps mod 2^32 exactly as the JAX program does. The emit test is written
 // (x >> 20) >= f: x >= f << 20 overflows at f = M (a one-symbol block).
 //
-// Layout: one block of 128 threads per rANS block, one thread per lane; a
-// [T, 128] grid is row-major with the lane fastest, so each step's loads and
-// stores are coalesced across the block. The format fixes 128 lanes (the
-// header stores log2 of the lane count), so a block cannot widen without
-// changing bytes. Bound: both scans are serial chains of T dependent steps
-// per lane; the kernels are bound by the latency of one step times T, not
-// by bytes. Encode (a u32 division per step) software-pipelines its loads:
-// the next tile of kTile steps is in flight while the current one is coded.
+// Layout: one block of 128 threads per rANS block, one thread per lane. The
+// format fixes 128 lanes (the header stores log2 of the lane count), so a
+// block cannot widen without changing bytes. Bound: both scans are serial
+// chains of T dependent steps per lane, and one warp per scheduler hides no
+// latency: the kernels are bound by the latency of one step times T, not by
+// bytes. So whatever does not depend on the state is taken off the chain.
+//
+// Encode is designed around that chain:
+//   * nothing per slot comes from the host: a lane reads its symbols 16 at a
+//     time (one 16-byte load of its chunk and 4 bytes for the symbols before
+//     it, or 16 coalesced byte loads of a strided lane, packed only when
+//     they are needed), two granules ahead of the scan, and finds each
+//     slot's validity from n and the lane layout (a lane's valid steps are a
+//     prefix), its context from the four symbols before it (weights A^(i-1)
+//     for i <= k, else 0), and its f and c from a table staged in shared
+//     memory at block start: one entry f | c << 16 per (context, symbol)
+//     where 4 bytes an entry fit, else cumulative rows of u16 (at most 128
+//     KB);
+//   * no division on the chain: q = xr / f is the high half of xr * (m + 1)
+//     with m = floor((2^64 - 1) / f) read from a table of the 4096 possible
+//     f in shared memory, taken as two 32 x 32 -> 64 bit multiply-adds
+//     (p0 = xr * m.lo + xr, p1 = xr * m.hi + (p0 >> 32), q = p1 >> 32; no
+//     sum passes 2^64). m + 1 = ceil(2^64 / f) = (2^64 + e) / f with
+//     0 <= e < f, so xr * (m + 1) / 2^64 = (xr + xr * e / 2^64) / f, and
+//     xr * e < 2^64 keeps the floor at xr / f: exact for every u32 xr and f.
+//     The remainder is xr - q * f, folded with + c into one multiply-add;
+//   * no load on the chain: a slot's f, c and reciprocal are in registers a
+//     granule before the state reaches it, prepared slot by slot between
+//     the steps of the granule before (one warp per scheduler overlaps only
+//     what lies side by side in the code it runs);
+//   * a pad slot is the slot f = M, c = 0, which leaves every state as it
+//     is and never emits, so a step has no validity test;
+//   * the reverse scan emits a lane's last word first, so lane l writes its
+//     words downwards from the end of its part of a scratch buffer (a block
+//     emits at most one word per valid slot); then the block sums the 128
+//     counts in shared memory and its warps copy each lane's words to where
+//     the header wants them: forward order, lanes concatenated.
 //
 // Decode is designed around that chain:
-//   * one launch decodes every rANS block of a stream: grid = blocks, each
-//     CUDA block reads its own descriptor row, so a stream takes the time of
-//     its longest block and the other SMs are not idle while it runs;
 //   * no table in device memory on the chain: at block start the 128 threads
 //     turn the header's u16 frequency rows into cumulative rows in shared
 //     memory (C rows of pow2 >= A u16; at most 209,952 bytes for any (A, k)
@@ -56,82 +84,10 @@
 namespace {
 
 constexpr int kLanes = 128;
-constexpr int kTile = 16;
 constexpr uint32_t kMBits = 12;
 constexpr uint32_t kM = 1u << kMBits;
 constexpr uint32_t kRansL = 1u << 16;
 constexpr int kMaxSmem = 232448;   // dynamic shared memory of a Hopper block
-
-// steps base-1 .. base-kTile (reverse time) of lane l; t < 0 is a pad step
-__device__ __forceinline__ void load_tile(const uint32_t* __restrict__ f,
-                                          const uint32_t* __restrict__ c,
-                                          const uint8_t* __restrict__ valid,
-                                          int64_t base, int l,
-                                          uint32_t (&tf)[kTile],
-                                          uint32_t (&tc)[kTile],
-                                          uint32_t (&tv)[kTile]) {
-#pragma unroll
-    for (int j = 0; j < kTile; ++j) {
-        const int64_t t = base - 1 - j;
-        if (t >= 0) {
-            const int64_t i = t * kLanes + l;
-            tf[j] = __ldg(f + i);
-            tc[j] = __ldg(c + i);
-            tv[j] = __ldg(valid + i);
-        } else {
-            tf[j] = 1;
-            tc[j] = 0;
-            tv[j] = 0;
-        }
-    }
-}
-
-// f, c: [T, 128] u32; valid: [T, 128] u8 (0/1). Out: states [128] u32, words
-// [T, 128] u16 (lane l's words in forward time order in rows 0..counts[l]-1,
-// zeros below), counts [128] i32.
-__global__ void __launch_bounds__(kLanes)
-rans_encode_kernel(const uint32_t* __restrict__ f,
-                   const uint32_t* __restrict__ c,
-                   const uint8_t* __restrict__ valid, int64_t T,
-                   uint32_t* __restrict__ states, uint16_t* __restrict__ words,
-                   int32_t* __restrict__ counts) {
-    const int l = threadIdx.x;
-    uint32_t x = kRansL;
-    int64_t n = 0;
-    uint32_t af[kTile], ac[kTile], av[kTile];
-    uint32_t bf[kTile], bc[kTile], bv[kTile];
-    load_tile(f, c, valid, T, l, af, ac, av);
-    for (int64_t base = T; base > 0; base -= kTile) {
-        if (base > kTile) load_tile(f, c, valid, base - kTile, l, bf, bc, bv);
-#pragma unroll
-        for (int j = 0; j < kTile; ++j) {
-            if (!av[j]) continue;   // pad step: the state passes through
-            const uint32_t fj = af[j] > 1u ? af[j] : 1u;
-            if ((x >> 20) >= fj) {
-                // the reverse scan emits last-first: word e goes to row
-                // T-1-e, so rows T-n .. T-1 end up in forward order
-                words[(T - 1 - n) * kLanes + l] = (uint16_t)(x & 0xFFFFu);
-                ++n;
-                x >>= 16;
-            }
-            x = ((x / fj) << kMBits) | ((x % fj) + ac[j]);
-        }
-#pragma unroll
-        for (int j = 0; j < kTile; ++j) {
-            af[j] = bf[j];
-            ac[j] = bc[j];
-            av[j] = bv[j];
-        }
-    }
-    states[l] = x;
-    counts[l] = (int32_t)n;
-    // move rows T-n .. T-1 up to 0 .. n-1 (source row >= destination row,
-    // so a forward in-place copy is safe) and zero the rest of the column
-#pragma unroll 8
-    for (int64_t i = 0; i < T; ++i)
-        words[i * kLanes + l] =
-            i < n ? words[(T - n + i) * kLanes + l] : (uint16_t)0;
-}
 
 // Descriptor row of one rANS block (int64 fields; offsets in elements of
 // their buffer). ops/rans.py builds and checks the rows on the host.
@@ -406,27 +362,365 @@ rans_decode_kernel(const uint32_t* __restrict__ head,
     else scan_lane<kModeBin, 0>(m, x, nvu, out, q0, cnt, l);
 }
 
+// ---- encode ---------------------------------------------------------------
+
+// Descriptor row of one rANS block to encode (int64 fields; offsets in
+// elements of their buffer). ops/rans.py builds and checks the rows.
+enum EncDesc {
+    kESyms,      // first byte of the block's n symbol ids in `syms`
+    kEFreq,      // first u16 of the block's [C, A] frequency rows in `freq`
+    kEWords,     // first u16 of the block's part (n words) of `scratch` and
+                 // of `words`
+    kEN,         // symbols in the block
+    kET,         // steps
+    kEA,         // alphabet size
+    kEC,         // contexts, A^k
+    kEChunked,   // 1: lane l owns symbols [l*T, (l+1)*T); 0: l, l+128, ...
+    kEK,         // order k <= 4 (0 where C = 1)
+    kEPacked,    // 1: the slot table f | c << 16 in shared memory (4 bytes
+                 // an entry); 0: cumulative rows (2 bytes an entry)
+    kEncFields
+};
+
+constexpr uint32_t kSlots = 16;      // slots of a granule: one 16-byte load
+constexpr uint32_t kCopy = 16;       // words a thread copies at a time
+// dynamic shared memory before the block's table: the lanes' word counts,
+// their offsets in the block's stream, the reciprocal of every f in 1..M
+constexpr int kEncFixed = 2 * kLanes * 4 + kM * 8;
+// a pad slot: f = M, c = 0 (c in the high half)
+constexpr uint32_t kPadSlot = kM;
+
+// the valid steps of lane l (a prefix of its T) and the valid slots of the
+// lanes before it, which is where its part of the scratch buffer starts
+__device__ __forceinline__ void lane_span(uint32_t n, uint32_t T, bool chunked,
+                                          uint32_t l, uint32_t& nv,
+                                          uint32_t& before) {
+    if (chunked) {
+        before = l * T < n ? l * T : n;
+        nv = n - before < T ? n - before : T;
+    } else {
+        const uint32_t q = n / kLanes, r = n % kLanes;
+        before = l * q + (l < r ? l : r);
+        nv = q + (l < r);
+    }
+}
+
+// A granule of a lane in flight: symbols 16g .. 16g+15, step 16g+j in byte j
+// of `sym` once `settle` has run, and in `before` the four symbols before
+// them (symbol 0 before the lane's first). Steps at or past nv, and every
+// step of g < 0, read as symbol 0. A chunked lane's symbols lie side by side
+// from p: one 16-byte load, and a 4-byte load for `before`. A strided
+// lane's lie 128 bytes apart: 16 byte loads, kept apart in `raw` until
+// `settle` packs them, so that the loads are not waited for where they are
+// issued (a strided lane has no context, so no `before`).
+template <bool kChunked>
+struct Granule {
+    uint32_t sym[4];
+    uint32_t before;
+    uint32_t raw[kChunked ? 1 : kSlots];
+
+    __device__ __forceinline__ void fetch(const uint8_t* p, int32_t g,
+                                          uint32_t nv) {
+        sym[0] = sym[1] = sym[2] = sym[3] = before = 0;
+#pragma unroll
+        for (uint32_t j = 0; j < (kChunked ? 1 : kSlots); ++j) raw[j] = 0;
+        if (g < 0) return;
+        const uint32_t t0 = (uint32_t)g * kSlots;
+        if (!kChunked) {
+#pragma unroll
+            for (uint32_t j = 0; j < kSlots; ++j)
+                if (t0 + j < nv) raw[j] = __ldg(p + (size_t)(t0 + j) * kLanes);
+            return;
+        }
+        const bool aligned = (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+        if (aligned && t0 + kSlots <= nv) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + t0));
+            sym[0] = v.x; sym[1] = v.y; sym[2] = v.z; sym[3] = v.w;
+        } else {
+#pragma unroll
+            for (uint32_t j = 0; j < kSlots; ++j)
+                if (t0 + j < nv)
+                    sym[j >> 2] |= (uint32_t)__ldg(p + t0 + j)
+                                   << (8 * (j & 3));
+        }
+        if (g == 0) return;
+        if (aligned) {
+            before = __ldg(reinterpret_cast<const uint32_t*>(p + t0 - 4));
+        } else {
+#pragma unroll
+            for (uint32_t j = 0; j < 4; ++j)
+                before |= (uint32_t)__ldg(p + t0 - 4 + j) << (8 * j);
+        }
+    }
+
+    __device__ __forceinline__ void settle() {
+        if (kChunked) return;
+#pragma unroll
+        for (uint32_t j = 0; j < kSlots; ++j)
+            sym[j >> 2] |= raw[j] << (8 * (j & 3));
+    }
+};
+
+// What a block's lanes share while they encode. The table of a block is
+// one of two: where C * A * 4 bytes fit, an entry f | c << 16 for every
+// (context, symbol), so a slot costs one load; else C rows of A inclusive
+// cumulative sums, from which a slot takes two entries (the format's largest
+// tables, 65,536 entries, fit in shared memory only so).
+struct EncModel {
+    const uint32_t* fct;   // shared: f | c << 16 at [ctx * A + s], or
+    const uint16_t* cum;   // shared: freq[0] + ... + freq[s] there
+    const uint2* rcp;      // shared: floor((2^64 - 1) / f) at [f - 1]
+    uint32_t A;
+    uint32_t w[4];         // context weights: A^(i-1) for i <= k, else 0
+};
+
+// The slots of a granule, ready to code: f | c << 16, and the two halves of
+// f's reciprocal.
+struct Slots {
+    uint32_t fc[kSlots], mlo[kSlots], mhi[kSlots];
+};
+
+// Slot j of a settled granule, `count` of whose slots are valid; the
+// context of a slot of a chunked lane is the k <= 4 symbols before it,
+// oldest in the highest digit (a strided lane has none); the reciprocal
+// comes with it, so that a step loads nothing. Nothing here depends on the
+// coder's state.
+template <bool kChunked, bool kPacked>
+__device__ __forceinline__ void prepare_slot(const EncModel& m,
+                                             const Granule<kChunked>& gr,
+                                             int j, uint32_t count,
+                                             Slots& out) {
+    auto sym = [&](int i) -> uint32_t {     // symbol of step i, i >= -4
+        const uint32_t word = i < 0 ? gr.before : gr.sym[i >> 2];
+        return (word >> (8 * (i & 3))) & 0xFFu;
+    };
+    const uint32_t s = sym(j);
+    uint32_t ctx = 0;
+    if (kChunked) {
+#pragma unroll
+        for (int i = 1; i <= 4; ++i) ctx += sym(j - i) * m.w[i - 1];
+    }
+    uint32_t fc;
+    if (kPacked) {
+        fc = m.fct[ctx * m.A + s];
+    } else {
+        const uint16_t* row = m.cum + ctx * m.A;
+        const uint32_t hi = row[s];
+        const uint32_t lo = row[s - (s != 0)];
+        const uint32_t c = s ? lo : 0u;
+        // sums wrap at 2^16 like the u16 they are kept in, so f is the
+        // symbol's own frequency whatever the row sums to
+        const uint32_t f = (hi - c) & 0xFFFFu;
+        fc = (f > 1u ? f : 1u) | (c << 16);
+    }
+    if ((uint32_t)j >= count) fc = kPadSlot;
+    out.fc[j] = fc;
+    const uint2 r = m.rcp[(fc & 0xFFFFu) - 1];
+    out.mlo[j] = r.x;
+    out.mhi[j] = r.y;
+}
+
+// Step j of a granule on the state x; an emitted word goes to scr[--pos].
+__device__ __forceinline__ void code_slot(const Slots& in, int j, uint32_t& x,
+                                          uint16_t* scr, uint32_t& pos) {
+    const uint32_t f = in.fc[j] & 0xFFFFu, c = in.fc[j] >> 16;
+    // (x >> 20) >= f as one compare: x > (f << 20) - 1, which wraps to
+    // 2^32 - 1 at f = M, where no state emits
+    const bool emit = x > (f << 20) - 1u;
+    // the word in a register of its own: the store holds its operand for a
+    // while, and the state is written again at once
+    uint32_t word;
+    asm("mov.b32 %0, %1;" : "=r"(word) : "r"(x));
+    if (emit) scr[--pos] = (uint16_t)word;
+    const uint32_t xr = emit ? x >> 16 : x;
+    const uint64_t p0 = (uint64_t)xr * in.mlo[j] + xr;
+    const uint64_t p1 = (uint64_t)xr * in.mhi[j] + (p0 >> 32);
+    const uint32_t q = (uint32_t)(p1 >> 32);
+    x = (q << kMBits) | (xr + c - q * f);
+}
+
+// The scan of one lane over its nv valid steps, last step first. The words
+// go downwards from scr[nv], so they end up in forward order from scr[pos]
+// on. Returns the final state; `pos` comes back at the lane's first word.
+template <bool kChunked, bool kPacked>
+__device__ __forceinline__ uint32_t encode_lane(const EncModel& m,
+                                                const uint8_t* p, uint32_t nv,
+                                                uint16_t* scr,
+                                                uint32_t& pos) {
+    uint32_t x = kRansL;
+    pos = nv;
+    const int32_t G = (int32_t)((nv + kSlots - 1) / kSlots);
+    if (G == 0) return x;
+    // a turn codes granule g from `cur` while it prepares granule g-1 into
+    // `nxt` from the settled granule `near`, slot by slot between the steps
+    // (one warp per scheduler overlaps only what lies side by side in the
+    // code it runs), and fetches granule g-2 into `far`; the two
+    // granules and the two sets of slots swap roles from turn to turn
+    Granule<kChunked> ga, gb;
+    Slots sa, sb;
+    auto turn = [&](int32_t g, const Slots& cur, Slots& nxt,
+                    Granule<kChunked>& near, Granule<kChunked>& far) {
+        far.fetch(p, g - 2, nv);
+#pragma unroll
+        for (int j = (int)kSlots - 1; j >= 0; --j) {
+            prepare_slot<kChunked, kPacked>(m, near, j, kSlots, nxt);
+            code_slot(cur, j, x, scr, pos);
+        }
+        far.settle();
+    };
+    int32_t g = G - 1;
+    ga.fetch(p, g, nv);
+    ga.settle();
+#pragma unroll
+    for (int j = 0; j < (int)kSlots; ++j)
+        prepare_slot<kChunked, kPacked>(m, ga, j, nv - (uint32_t)g * kSlots,
+                                        sa);
+    ga.fetch(p, g - 1, nv);
+    ga.settle();
+    if (G & 1) {        // an odd turn first, then turns in pairs
+        turn(g, sa, sb, ga, gb);
+        --g;
+        sa = sb;
+        ga = gb;
+    }
+    for (; g >= 1; g -= 2) {
+        turn(g, sa, sb, ga, gb);
+        turn(g - 1, sb, sa, gb, ga);
+    }
+    return x;
+}
+
+// syms: the blocks' symbol ids; freq: their [C, A] u16 frequency rows, no
+// entry above M; desc [B, kEncFields]. Out: head [B, 256] u32, each block's
+// lane states, then its words per lane; words: at each block's offset its
+// lane streams, each lane's words in decode read order, lanes in order;
+// scratch: as large as words. Dynamic shared memory: kEncFixed bytes, then
+// the block's table. One block per SM in the launch bounds, as for decode.
+__global__ void __launch_bounds__(kLanes, 1)
+rans_encode_kernel(const uint8_t* __restrict__ syms,
+                   const uint16_t* __restrict__ freq,
+                   const int64_t* __restrict__ desc,
+                   uint32_t* __restrict__ head, uint16_t* __restrict__ scratch,
+                   uint16_t* __restrict__ words) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    const uint32_t l = threadIdx.x;
+    const int64_t* d = desc + (int64_t)blockIdx.x * kEncFields;
+    const uint32_t n = (uint32_t)d[kEN], T = (uint32_t)d[kET];
+    const uint32_t A = (uint32_t)d[kEA], C = (uint32_t)d[kEC];
+    const bool chunked = d[kEChunked] != 0;
+    uint32_t* lane_cnt = reinterpret_cast<uint32_t*>(smem);
+    uint32_t* lane_off = lane_cnt + kLanes;
+    uint2* rcp = reinterpret_cast<uint2*>(smem + 2 * kLanes * 4);
+    uint16_t* cum = reinterpret_cast<uint16_t*>(smem + kEncFixed);
+
+    // stage the model: the reciprocals, then the block's table (a thread
+    // per row; sums wrap at 2^16 in both forms)
+    for (uint32_t i = l; i < kM; i += kLanes) {
+        const uint64_t m = ~0ull / (uint64_t)(i + 1);
+        rcp[i] = make_uint2((uint32_t)m, (uint32_t)(m >> 32));
+    }
+    const uint16_t* fq = freq + d[kEFreq];
+    const bool packed = d[kEPacked] != 0;
+    uint32_t* fct = reinterpret_cast<uint32_t*>(smem + kEncFixed);
+    for (uint32_t r = l; r < C; r += kLanes) {
+        const uint16_t* fr = fq + (size_t)r * A;
+        uint16_t* cr = cum + (size_t)r * A;
+        uint32_t* pr = fct + (size_t)r * A;
+        uint32_t acc = 0;
+        for (uint32_t s = 0; s < A; ++s) {
+            const uint32_t f = __ldg(fr + s);
+            if (packed) pr[s] = (f > 1u ? f : 1u) | (acc << 16);
+            acc += f;
+            if (!packed) cr[s] = (uint16_t)acc;
+        }
+    }
+    __syncthreads();
+
+    EncModel m = {fct, cum, rcp, A, {0, 0, 0, 0}};
+    uint32_t wi = 1;
+#pragma unroll
+    for (uint32_t i = 0; i < 4; ++i, wi *= A)
+        m.w[i] = i < (uint32_t)d[kEK] ? wi : 0u;
+    uint32_t nv, before;
+    lane_span(n, T, chunked, l, nv, before);
+    uint16_t* scr = scratch + d[kEWords] + before;
+    // keep the pointer in registers: rebuilt from the kernel's arguments at
+    // every store, it would cost a step a load from the constant bank
+    asm volatile("" : "+l"(scr));
+    uint32_t pos;
+    const uint8_t* sy = syms + d[kESyms];
+    const uint8_t* ch = sy + (size_t)l * T;
+    uint32_t x;
+    // a strided lane has no context, and every table it can have (A <= 256
+    // entries) is a packed one
+    if (!chunked) x = encode_lane<false, true>(m, sy + l, nv, scr, pos);
+    else if (packed) x = encode_lane<true, true>(m, ch, nv, scr, pos);
+    else x = encode_lane<true, false>(m, ch, nv, scr, pos);
+    const uint32_t cnt = nv - pos;
+    uint32_t* hd = head + (size_t)blockIdx.x * 2 * kLanes;
+    hd[l] = x;
+    hd[kLanes + l] = cnt;
+    lane_cnt[l] = cnt;
+    __syncthreads();     // also: every lane's scratch words are written
+    uint32_t off = 0;
+    for (uint32_t j = 0; j < l; ++j) off += lane_cnt[j];
+    lane_off[l] = off;
+    __syncthreads();
+
+    // lane j's words: from below the end of its part of scratch to their
+    // place in the block's stream; a warp per lane, lanes in turns
+    uint16_t* out = words + d[kEWords];
+    for (uint32_t j = l / 32; j < kLanes; j += kLanes / 32) {
+        uint32_t nvj, bj;
+        lane_span(n, T, chunked, j, nvj, bj);
+        const uint32_t cj = lane_cnt[j];
+        const uint16_t* src = scratch + d[kEWords] + bj + nvj - cj;
+        uint16_t* dst = out + lane_off[j];
+        // kCopy loads in flight a thread, then their stores
+        for (uint32_t i0 = l % 32; i0 < cj; i0 += 32 * kCopy) {
+            uint16_t v[kCopy];
+#pragma unroll
+            for (uint32_t u = 0; u < kCopy; ++u)
+                if (i0 + 32 * u < cj) v[u] = src[i0 + 32 * u];
+#pragma unroll
+            for (uint32_t u = 0; u < kCopy; ++u)
+                if (i0 + 32 * u < cj) dst[i0 + 32 * u] = v[u];
+        }
+    }
+}
+
 }  // namespace
 
 extern "C" {
 
-int mtc_rans_encode(const uint32_t* f, const uint32_t* c,
-                    const uint8_t* valid, int64_t T, uint32_t* states,
-                    uint16_t* words, int32_t* counts, void* stream) {
-    rans_encode_kernel<<<1, kLanes, 0, (cudaStream_t)stream>>>(
-        f, c, valid, T, states, words, counts);
+// One launch for the B blocks of desc, with the shared memory opt-in of
+// mtc_rans_decode below.
+int mtc_rans_encode(const uint8_t* syms, const uint16_t* freq,
+                    const int64_t* desc, int64_t B, int64_t smem_bytes,
+                    uint32_t* head, uint16_t* scratch, uint16_t* words,
+                    void* stream) {
+    cudaError_t err = cudaFuncSetAttribute(
+        rans_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    rans_encode_kernel<<<(unsigned)B, kLanes, (size_t)smem_bytes,
+                         (cudaStream_t)stream>>>(syms, freq, desc, head,
+                                                 scratch, words);
     return (int)cudaGetLastError();
 }
 
 // What ops/rans.py must agree with, for it to check when it loads the
-// library: the fields of a descriptor row, the most dynamic shared memory a
-// launch may ask for, the bytes before the cumulative rows, the words of a
-// granule.
+// library: the fields of a decode descriptor row, the most dynamic shared
+// memory a launch may ask for, decode's bytes before the cumulative rows, the
+// words of a granule, the fields of an encode descriptor row, encode's bytes
+// before a block's table.
 void mtc_rans_layout(int64_t* out) {
     out[0] = kDescFields;
     out[1] = kMaxSmem;
     out[2] = kFixed;
     out[3] = kGran;
+    out[4] = kEncFields;
+    out[5] = kEncFixed;
 }
 
 // One launch for the B blocks of desc; smem_bytes is the largest block's

@@ -8,12 +8,12 @@ remapped alphabet (the used byte values; A symbols). The requested k
 degrades until the dense table A^k * A * 2 bytes fits kTableCap; the k used
 ships in the header. Lanes own contiguous chunks (lane l codes symbols
 [l*T, (l+1)*T)), so each lane's context is the true previous-k window; the
-context resets to symbol 0 at chunk starts. The host builds the tables
-(float64 numpy, as the reference does) and gathers each slot's frequency
-and cumulative frequency for encode; the scans run in ``ops/rans.py``.
-Decode hands the header's frequency rows to the scan as they are (the kernel
-builds its tables in shared memory) and decodes all blocks of a stream in
-one launch.
+context resets to symbol 0 at chunk starts. The host counts each block's
+(context, symbol) pairs and quantizes them (float64 numpy, as the reference
+does); the scans run in ``ops/rans.py`` and take the frequency rows as the
+header holds them (the kernels build their tables in shared memory; encode
+finds each slot's context, frequency and cumulative frequency itself). One
+launch codes all blocks of a stream, and one decodes them.
 
 Layout per block (little-endian):
   u8 version=2  u8 log2(LANES)  u8 k  u8 pad
@@ -29,9 +29,9 @@ from __future__ import annotations
 import numpy as np
 
 from minicom_tpu_torch import native
-from minicom_tpu_torch.entropy.device_rans import (Block, _lane_bytes, _to,
-                                                  decode_blocks)
-from minicom_tpu_torch.ops.rans import LANES, M, rans_encode
+from minicom_tpu_torch.entropy.device_rans import (Block, decode_blocks,
+                                                  encode_blocks)
+from minicom_tpu_torch.ops.rans import LANES, M
 
 _VERSION = 2
 BLOCK = 1 << 22            # symbols per block
@@ -88,20 +88,6 @@ def _quantize_rows(cnt: np.ndarray) -> np.ndarray:
     return q.astype(np.uint16)
 
 
-def _ctx_grid(sym_grid: np.ndarray, k: int, A: int) -> np.ndarray:
-    """[T, LANES] symbol ids -> [T, LANES] int32 contexts (previous k
-    symbols of the SAME lane chunk, oldest in the highest digit; chunk
-    starts pad with symbol 0)."""
-    T = sym_grid.shape[0]
-    ctx = np.zeros((T, LANES), np.int64)
-    for j in range(1, k + 1):
-        prev = np.zeros((T, LANES), np.int64)
-        if T > j:
-            prev[j:] = sym_grid[:-j]
-        ctx += prev * (A ** (j - 1))
-    return ctx.astype(np.int32)
-
-
 def _tier_chunk(T: int) -> int:
     """Round a lane's chunk length up to a pow2 tier (>= 256): the tier
     decides which symbols each lane owns, so it is part of the format."""
@@ -111,44 +97,27 @@ def _tier_chunk(T: int) -> int:
     return t
 
 
-def _encode_inputs(syms: np.ndarray, A: int, k: int):
-    """One block's order, tables and [T, LANES] slot grids (chunked lanes):
-    (k, freq [A^k, A] u16, f, c, valid)."""
-    n = len(syms)
+def _context_counts(syms: np.ndarray, A: int, k: int, T: int) -> np.ndarray:
+    """[A^k, A] counts of (context, symbol) over one block's symbol ids,
+    lane chunks of T symbols: the context of a symbol is the k before it in
+    its chunk, oldest in the highest digit, symbol 0 before the chunk's
+    first."""
+    at = syms.astype(np.int32)
+    for j in range(1, k + 1):
+        prev = np.zeros(len(syms), np.int32)
+        prev[j:] = syms[:-j]
+        for i in range(min(j, T)):
+            prev[i::T] = 0          # the chunk's first j symbols
+        at += prev * A ** j
+    return np.bincount(at, minlength=A ** (k + 1)).reshape(A ** k, A)
+
+
+def _model(syms: np.ndarray, A: int, k: int) -> Block:
+    """One block's order, tier and quantized rows, ready to code."""
     k = _feasible_k(A, k)
-    C = A ** k
-    T = _tier_chunk(max(1, -(-n // LANES)))
-    pad = T * LANES - n
-    if pad:
-        syms = np.concatenate([syms, np.zeros(pad, syms.dtype)])
-    grid = syms.reshape(LANES, T).T.astype(np.int32)    # chunked lanes
-    ctx = _ctx_grid(grid, k, A)
-    valid = np.ascontiguousarray(np.arange(T * LANES).reshape(LANES, T).T < n)
-    flat = ctx.astype(np.int64) * A + grid
-    cnt = np.bincount(flat.reshape(-1)[valid.reshape(-1)],
-                      minlength=C * A).reshape(C, A)
-    freq = _quantize_rows(cnt)
-    cum = np.zeros((C, A), np.int64)
-    cum[:, 1:] = np.cumsum(freq[:, :-1], axis=1)
-    # per-slot gathers on the host (the symbols are known)
-    f_g = freq.reshape(-1)[flat].astype(np.uint32)
-    c_g = cum.reshape(-1)[flat].astype(np.uint32)
-    return k, freq, f_g, c_g, valid
-
-
-def _encode_block(syms: np.ndarray, A: int, alphabet: np.ndarray, k: int,
-                  device) -> bytes:
-    k, freq, f_g, c_g, valid = _encode_inputs(syms, A, k)
-    states, words, wcounts = (x.cpu().numpy() for x in rans_encode(
-        _to(f_g, device), _to(c_g, device), _to(valid, device)))
-    head = (bytes([_VERSION, LANES.bit_length() - 1, k, 0])
-            + np.array([M, A], "<u2").tobytes()
-            + np.array([len(syms)], "<u8").tobytes()
-            + alphabet.astype(np.uint8).tobytes()
-            + freq.astype("<u2").tobytes()
-            + states.astype("<u4").tobytes()
-            + wcounts.astype("<u4").tobytes())
-    return head + _lane_bytes(words, wcounts)
+    T = _tier_chunk(max(1, -(-len(syms) // LANES)))
+    freq = _quantize_rows(_context_counts(syms, A, k, T))
+    return Block(len(syms), T, A, A ** k, True, freq.reshape(-1))
 
 
 def _parse_block(blob: memoryview) -> tuple[Block, np.ndarray, int]:
@@ -180,18 +149,35 @@ def _parse_block(blob: memoryview) -> tuple[Block, np.ndarray, int]:
     return Block(n, T, A, C, True, freq, head, flat), alphabet, off
 
 
+def remap(buf: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(alphabet, symbol ids) of a byte stream: the byte values it uses, in
+    order (one pass, no sort; [0] for an empty stream), and each byte's
+    index among them."""
+    alphabet = np.flatnonzero(np.bincount(buf, minlength=256)).astype(
+        np.uint8) if len(buf) else np.zeros(1, np.uint8)
+    ids = np.zeros(256, np.uint8)
+    ids[alphabet] = np.arange(len(alphabet), dtype=np.uint8)
+    return alphabet, ids[buf]
+
+
 def compress(data: bytes, k: int, device) -> bytes:
     """Byte stream -> framed context-rANS blocks (alphabet = used bytes).
     An empty stream still writes one block."""
     buf = np.frombuffer(data, np.uint8)
-    alphabet = np.unique(buf) if len(buf) else np.zeros(1, np.uint8)
-    remap = np.zeros(256, np.uint8)
-    remap[alphabet] = np.arange(len(alphabet), dtype=np.uint8)
-    syms = remap[buf]
+    alphabet, syms = remap(buf)
+    A = len(alphabet)
+    blocks = [_model(syms[i: i + BLOCK], A, k)
+              for i in range(0, max(len(syms), 1), BLOCK)]
     parts = [np.array([len(buf)], "<u8").tobytes()]
-    for i in range(0, max(len(syms), 1), BLOCK):
-        parts.append(_encode_block(syms[i: i + BLOCK], len(alphabet),
-                                   alphabet, k, device))
+    for b in encode_blocks(syms, blocks, device):
+        parts += [bytes([_VERSION, LANES.bit_length() - 1,
+                         _feasible_k(A, k), 0]),
+                  np.array([M, A], "<u2").tobytes(),
+                  np.array([b.n], "<u8").tobytes(),
+                  alphabet.tobytes(),
+                  b.freq.astype("<u2").tobytes(),
+                  b.head.astype("<u4").tobytes(),
+                  b.words.astype("<u2").tobytes()]
     return b"".join(parts)
 
 

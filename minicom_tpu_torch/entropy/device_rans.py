@@ -8,9 +8,12 @@ renormalisation, frequencies quantized on the host to M = 2^12 by
 deterministic largest-remainder rounding (float64 numpy; the table ships in
 the block header, so decode needs no float math). The scans run in
 ``ops/rans.py``: CUDA kernels on a CUDA ``device``, their plain PyTorch
-versions on ``device="cpu"``. Encode codes block after block; decode parses
-every block header of a stream on the host, then decodes all its blocks in
-one kernel launch (one upload, one launch, one download per stream).
+versions on ``device="cpu"``. Encode counts and quantizes every block of a
+stream on the host, then codes all its blocks in one kernel launch (the
+symbols and the tables go up in one copy; the states and word counts come
+down in one, the lane streams in one more); decode parses every block
+header of a stream on the host, then decodes all its blocks in one launch
+(one upload, one launch, one download per stream).
 
 Stream layout (little-endian): u64 n_symbols, then per block of at most
 BLOCK symbols:
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from minicom_tpu_torch.ops import rans
-from minicom_tpu_torch.ops.rans import LANES, M, rans_encode
+from minicom_tpu_torch.ops.rans import LANES, M
 
 _VERSION = 1
 # symbols per block; tail blocks round T up to a pow2 tier (the tier fixes
@@ -66,15 +69,6 @@ def quantize_freqs(counts: np.ndarray) -> np.ndarray:
     return q.astype(np.uint16)
 
 
-def _tables(freq_q: np.ndarray):
-    """(freq u32, cum u32, slot -> symbol u8 [M]) of a quantized table."""
-    cum = np.concatenate([[0], np.cumsum(freq_q[:-1], dtype=np.int64)])
-    slot_sym = np.repeat(np.arange(256, dtype=np.uint8),
-                         freq_q.astype(np.int64))
-    assert len(slot_sym) == M
-    return freq_q.astype(np.uint32), cum.astype(np.uint32), slot_sym
-
-
 def _tier(T: int) -> int:
     """Round a tail-block step count up to a pow2 tier (>= 256)."""
     full = BLOCK // LANES
@@ -96,58 +90,18 @@ def _wtier(W: int) -> int:
     return t
 
 
-def _to(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-
-def _lane_bytes(words: np.ndarray, wcounts: np.ndarray) -> bytes:
-    """Encode's [T, LANES] words -> lane streams concatenated in lane
-    order."""
-    return b"".join(words[: wcounts[l], l].astype("<u2").tobytes()
-                    for l in range(LANES))
-
-
-def _encode_inputs(syms: np.ndarray):
-    """One block's quantized table and its [T, LANES] slot grids (strided
-    lanes): (freq_q, f, c, valid)."""
-    n = len(syms)
-    T = _tier(max(1, -(-n // LANES)))
-    pad = T * LANES - n
-    counts = np.bincount(syms, minlength=256)
-    if pad:
-        syms = np.concatenate([syms, np.zeros(pad, np.uint8)])
-    freq_q = quantize_freqs(counts)
-    freq, cum, _ = _tables(freq_q)
-    grid = syms.reshape(T, LANES)
-    valid = (np.arange(T * LANES) < n).reshape(T, LANES)
-    return freq_q, freq[grid], cum[grid], valid
-
-
-def _encode_block(syms: np.ndarray, device) -> bytes:
-    """One rANS block over <= BLOCK uint8 symbols."""
-    freq_q, f, c, valid = _encode_inputs(syms)
-    states, words, wcounts = (x.cpu().numpy() for x in rans_encode(
-        _to(f, device), _to(c, device), _to(valid, device)))
-    head = (bytes([_VERSION, LANES.bit_length() - 1])
-            + np.array([M], "<u2").tobytes()
-            + np.array([len(syms)], "<u8").tobytes()
-            + freq_q.astype("<u2").tobytes()
-            + states.astype("<u4").tobytes()
-            + wcounts.astype("<u4").tobytes())
-    return head + _lane_bytes(words, wcounts)
-
-
 @dataclasses.dataclass
 class Block:
-    """One parsed rANS block, as its header holds it."""
+    """One rANS block, as its header holds it (before it is coded, without
+    ``head`` and ``words``)."""
     n: int                 # symbols
     T: int                 # steps per lane
     A: int                 # alphabet size
     C: int                 # contexts
     chunked: bool          # lane l owns symbols [l*T, (l+1)*T), else l::128
     freq: np.ndarray       # u16 [C * A] quantized rows
-    head: np.ndarray       # u32 [256]: lane states, then words per lane
-    words: np.ndarray      # u16 lane streams, concatenated in lane order
+    head: np.ndarray = None    # u32 [256]: lane states, then words per lane
+    words: np.ndarray = None   # u16 lane streams, concatenated in lane order
 
 
 def _upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
@@ -161,6 +115,59 @@ def _upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
     dev = torch.from_numpy(buf).to(device)
     return [dev[o: o + a.nbytes].view(getattr(torch, a.dtype.name))
             for a, o in zip(arrays, offs)]
+
+
+def _model(syms: np.ndarray) -> Block:
+    """One block's tier and quantized table, ready to code."""
+    return Block(len(syms), _tier(max(1, -(-len(syms) // LANES))), 256, 1,
+                 False, quantize_freqs(np.bincount(syms, minlength=256)))
+
+
+def pack_symbols(syms: np.ndarray, blocks: list[Block], device):
+    """The arguments of ``rans_encode_blocks`` for these blocks, block i
+    coding the next ``blocks[i].n`` symbol ids of ``syms`` (uint8): (syms,
+    freq) on ``device`` through one copy, and the descriptors."""
+    desc = np.zeros((len(blocks), rans.ENC_FIELDS), np.int64)
+    s_off = f_off = 0
+    for d, b in zip(desc, blocks):
+        # a block emits at most one word per symbol: its words lie where
+        # its symbols do
+        d[:] = (s_off, f_off, s_off, b.n, b.T, b.A, b.C, b.chunked)
+        s_off += b.n
+        f_off += len(b.freq)
+    if s_off != len(syms):
+        raise ValueError(f"{len(syms)} symbols for blocks of {s_off}")
+    up_syms, up_freq = _upload(
+        [syms, np.concatenate([b.freq for b in blocks]).astype(np.uint16)],
+        device)
+    return up_syms, up_freq, torch.from_numpy(desc)
+
+
+def unpack_words(blocks: list[Block], desc: torch.Tensor, head: torch.Tensor,
+                 words: torch.Tensor) -> list[Block]:
+    """``blocks`` with what ``rans_encode_blocks`` gave for them: one
+    download of the states and word counts, then one of the lane streams
+    (the words each block emitted, not the room it was given)."""
+    head = head.cpu().numpy()
+    totals = head[:, LANES:].sum(axis=1, dtype=np.int64)
+    words = words.view(torch.int16)      # torch.cat takes no uint16
+    flat = torch.cat([words[o: o + t] for o, t in zip(
+        desc[:, rans.E_WORDS].tolist(), totals)]).cpu().numpy().view(
+            np.uint16)
+    ends = np.cumsum(totals)
+    return [dataclasses.replace(b, head=head[i], words=flat[e - t: e])
+            for i, (b, t, e) in enumerate(zip(blocks, totals, ends))]
+
+
+def encode_blocks(syms: np.ndarray, blocks: list[Block], device
+                  ) -> list[Block]:
+    """``blocks`` coded, in stream order: one upload, one
+    ``rans_encode_blocks`` call, two downloads."""
+    if not blocks:
+        return []
+    up_syms, up_freq, desc = pack_symbols(syms, blocks, device)
+    return unpack_words(blocks, desc, *rans.rans_encode_blocks(
+        up_syms, up_freq, desc))
 
 
 def pack_blocks(blocks: list[Block], device):
@@ -229,11 +236,18 @@ def _parse_block(blob) -> tuple[Block, int]:
 
 
 def compress(data: bytes, device) -> bytes:
-    """Codec entry: uint8 stream -> framed rANS blocks."""
+    """Codec entry: uint8 stream -> framed rANS blocks, each over at most
+    BLOCK symbols with its own table; one launch codes them all."""
     syms = np.frombuffer(data, np.uint8)
+    blocks = [_model(syms[i: i + BLOCK]) for i in range(0, len(syms), BLOCK)]
     parts = [np.array([len(syms)], "<u8").tobytes()]
-    for i in range(0, len(syms), BLOCK):
-        parts.append(_encode_block(syms[i: i + BLOCK], device))
+    for b in encode_blocks(syms, blocks, device):
+        parts += [bytes([_VERSION, LANES.bit_length() - 1]),
+                  np.array([M], "<u2").tobytes(),
+                  np.array([b.n], "<u8").tobytes(),
+                  b.freq.astype("<u2").tobytes(),
+                  b.head.astype("<u4").tobytes(),
+                  b.words.astype("<u2").tobytes()]
     return b"".join(parts)
 
 

@@ -35,7 +35,7 @@ _SIGS = {
                             _P],
     "mtc_consensus_vote": [_P, _I64, _P, _P, _I64, _I64, _INT, _P, _P, _P,
                            _P],
-    "mtc_rans_encode": [_P, _P, _P, _I64, _P, _P, _P, _P],
+    "mtc_rans_encode": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "mtc_rans_decode": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _P],
     "mtc_popcount_verify": [_P, _P, _I64, _I64, _P, _P],
 }

@@ -4,9 +4,8 @@ entropy codecs (``entropy/device_rans.py``, codec "trans"; and
 
 32-bit states in [2^16, 2^32), 16-bit renormalisation, M = 2^12. Order-0 is
 the context coder with C = 1 context and A = 256 symbols, so one encode and
-one decode serve both codecs. Encode takes its lane layout as a validity
-mask over the slots; decode derives it from a block's symbol count and its
-layout flag (strided or chunked lanes).
+one decode serve both codecs; both derive a block's lane layout from its
+symbol count and its layout flag (strided or chunked lanes).
 
 Each wrapper launches its CUDA kernel (``csrc/rans.cu``) on CUDA tensors and
 runs its plain PyTorch version on CPU tensors; both compute, bit for bit, the
@@ -14,11 +13,12 @@ JAX package's ``_encode_program`` / ``_decode_program``. The plain versions
 loop over the scan steps in Python on [128] tensors and carry u32 values in
 int64 masked to 32 bits (CPU PyTorch has no shifts or compares on uint32).
 
-Decode works on a batch: ``rans_decode_blocks`` takes every rANS block of a
-stream as the headers hold it (u16 frequency rows, states, words per lane,
-the lane streams) plus one descriptor row per block, and decodes them in one
-kernel launch; ``rans_decode`` is the single-block call with the JAX
-programs' arguments.
+Both work on a batch, one descriptor row per block, one kernel launch
+whatever the number of blocks. ``rans_encode_blocks`` takes a stream's
+symbol ids and each block's u16 frequency rows and gives what the block
+headers hold: states, words per lane, the lane streams.
+``rans_decode_blocks`` takes exactly that and gives the symbols back;
+``rans_decode`` is its single-block call with the JAX programs' arguments.
 """
 
 from __future__ import annotations
@@ -50,6 +50,18 @@ SMEM_MAX = 232448
 SMEM_FIXED = LANES * 4 + 4 * LANES * 16
 GRANULE_WORDS = 8      # a lane reads its words 16 bytes at a time
 
+# columns of an encode descriptor row (int64; offsets in elements of their
+# buffer): a block's n symbols from E_SYMS, its [C, A] frequency rows from
+# E_FREQ, and from E_WORDS the n words that the output keeps for it (a block
+# emits at most one word per symbol). The wrapper appends the order k and
+# which of the kernel's two tables the block gets.
+(E_SYMS, E_FREQ, E_WORDS, E_N, E_T, E_A, E_C, E_CHUNKED) = range(8)
+ENC_FIELDS = 8
+MAX_ORDER = 4          # the encode scan weighs the four symbols before a slot
+# encode's bytes before a block's table: 128 lane counts, 128 lane offsets,
+# the reciprocal (8 bytes) of every frequency 1..M
+ENC_SMEM_FIXED = 2 * LANES * 4 + M * 8
+
 
 def _encode_plain(f, c, valid):
     T = f.shape[0]
@@ -75,35 +87,6 @@ def _encode_plain(f, c, valid):
     out = torch.zeros((T, LANES), dtype=torch.int64, device=dev)
     out[pos[emit], lane[emit]] = word[emit]
     return x.to(torch.uint32), out.to(torch.uint16), counts
-
-
-def rans_encode(f: torch.Tensor, c: torch.Tensor, valid: torch.Tensor):
-    """Reverse rANS scan of a [T, 128] grid of coding slots.
-
-    f, c: [T, 128] uint32 frequency and cumulative frequency of each slot's
-    symbol (pad slots may hold 0; they are coded as f = 1 and discarded);
-    valid: [T, 128] bool. Returns (states [128] uint32, words [T, 128]
-    uint16, counts [128] int32): each lane's final state, and its emitted
-    16-bit words in forward time order in rows 0..counts-1, zeros below.
-    Replaces ``device_rans._encode_program`` and
-    ``device_ctx_rans._encode_program``."""
-    for t, dt, nm in ((f, torch.uint32, "f"), (c, torch.uint32, "c"),
-                      (valid, torch.bool, "valid")):
-        cuda.check(t, dt, 2, nm)
-        if t.shape[1] != LANES or t.shape != f.shape:
-            raise ValueError(f"{nm}: want [T, {LANES}], got {tuple(t.shape)}")
-        if t.device != f.device:
-            raise ValueError("f, c and valid on different devices")
-    if f.device.type == "cpu":
-        return _encode_plain(f, c, valid)
-    cuda.require_cuda(f)
-    dev = f.device
-    T = f.shape[0]
-    states = torch.empty(LANES, dtype=torch.uint32, device=dev)
-    words = torch.empty((T, LANES), dtype=torch.uint16, device=dev)
-    counts = torch.empty(LANES, dtype=torch.int32, device=dev)
-    cuda.launch("mtc_rans_encode", f, c, valid, T, states, words, counts)
-    return states, words, counts
 
 
 def _decode_plain(states, words, valid, freq, cum, slot_sym, A, C):
@@ -265,9 +248,10 @@ def _plan(head, words, freq, desc, out_size):
 def _kernel_layout_agrees() -> None:
     """Raise unless csrc/rans.cu was built with the layout this module
     plans for."""
-    got = (ctypes.c_int64 * 4)()
+    got = (ctypes.c_int64 * 6)()
     cuda.lib().mtc_rans_layout(got)
-    want = [DESC_FIELDS + 1, SMEM_MAX, SMEM_FIXED, GRANULE_WORDS]
+    want = [DESC_FIELDS + 1, SMEM_MAX, SMEM_FIXED, GRANULE_WORDS,
+            ENC_FIELDS + 2, ENC_SMEM_FIXED]
     if list(got) != want:
         raise RuntimeError(f"csrc/rans.cu layout {list(got)} != {want}")
 
@@ -367,3 +351,166 @@ def rans_decode(states: torch.Tensor, words: torch.Tensor,
     desc = torch.tensor([[0, W * LANES, 0, 0, n, T, W, A, C, int(chunked)]],
                         dtype=torch.int64)
     return rans_decode_blocks(head, flat, f16, desc, T * LANES).view(T, LANES)
+
+
+# ---- encode: every block of a stream in one call ---------------------------
+
+def _order(A: int, C: int):
+    """k with A^k == C (0 where C == 1), or None."""
+    k, c = 0, 1
+    while c < C and A > 1:
+        c *= A
+        k += 1
+    return k if c == C else None
+
+
+def _slots_plain(syms, freq, n: int, T: int, A: int, C: int, k: int,
+                 chunked: bool):
+    """What the kernel finds for each slot of a block, by torch ops: ([T,
+    128] int64 f and c, bool valid) from the block's n symbol ids (uint8)
+    and its [C * A] uint16 frequency rows. The context of a slot is the k
+    symbols before it in its lane, oldest in the highest digit, symbol 0
+    before the lane's first; c is the sum of the frequencies before the
+    symbol in its context's row (mod 2^16, as the kernel keeps its sums),
+    f the symbol's own. Pad slots hold symbol 0."""
+    dev = syms.device
+    flat = torch.zeros(T * LANES, dtype=torch.int64, device=dev)
+    flat[:n] = syms
+    grid = flat.view(LANES, T).t() if chunked else flat.view(T, LANES)
+    ctx = torch.zeros((T, LANES), dtype=torch.int64, device=dev)
+    for j in range(1, min(k, T - 1) + 1):
+        ctx[j:] += grid[:T - j] * A ** (j - 1)
+    rows = _u16(freq).view(C, A)
+    before = (torch.cumsum(rows, dim=1) - rows) & 0xFFFF
+    at = ctx * A + grid
+    return (rows.reshape(-1)[at], before.reshape(-1)[at],
+            _valid_plain(n, T, chunked, dev))
+
+
+def _encode_blocks_plain(syms, freq, full, size: int):
+    B = full.shape[0]
+    head = torch.zeros((B, 2 * LANES), dtype=torch.int64, device=syms.device)
+    words = torch.zeros(size, dtype=torch.int16, device=syms.device)
+    for b, d in enumerate(full.tolist()):
+        n, T, A, C = d[E_N], d[E_T], d[E_A], d[E_C]
+        states, grid, counts = _encode_plain(*_slots_plain(
+            syms[d[E_SYMS]: d[E_SYMS] + n],
+            freq[d[E_FREQ]: d[E_FREQ] + C * A], n, T, A, C, d[ENC_FIELDS],
+            bool(d[E_CHUNKED])))
+        # lane l's rows 0..counts[l]-1, lanes in order
+        keep = (torch.arange(T, device=syms.device)[None, :]
+                < counts[:, None])
+        lanes = grid.view(torch.int16).t()[keep]
+        words[d[E_WORDS]: d[E_WORDS] + lanes.shape[0]] = lanes
+        head[b, :LANES] = states.to(torch.int64)
+        head[b, LANES:] = counts
+    return head.to(torch.uint32), words.view(torch.uint16)
+
+
+def _enc_smem(A: int, C: int) -> tuple[int, bool]:
+    """(dynamic shared memory bytes of a block to encode, whether its
+    table is the packed one): the fixed part and a 4-byte entry f | c << 16
+    for each (context, symbol) where that fits, else cumulative rows of 2
+    bytes an entry."""
+    packed = ENC_SMEM_FIXED + C * A * 4 <= SMEM_MAX
+    return ENC_SMEM_FIXED + C * A * (4 if packed else 2), packed
+
+
+def _plan_encode(syms, freq, desc):
+    """Check a batch against its descriptors (on the host; one sync for
+    the values) and return the kernel's descriptor tensor, on the CPU
+    (``desc`` plus the order and the table columns), its dynamic shared
+    memory bytes, and the size of the words buffer. Raises ValueError on
+    what the kernel does not take."""
+    dev = syms.device
+    cuda.check(syms, torch.uint8, 1, "syms")
+    cuda.check(freq, torch.uint16, 1, "freq")
+    cuda.check(desc, torch.int64, 2, "desc")
+    if freq.device != dev:
+        raise ValueError("rans_encode_blocks: tensors on different devices")
+    if desc.device.type != "cpu" or desc.shape[1] != ENC_FIELDS:
+        raise ValueError(f"desc: want [B, {ENC_FIELDS}] on the CPU")
+    smem, size, more, parts = 0, 0, [], []
+    bad = torch.zeros((), dtype=torch.bool, device=dev)
+    for d in desc.tolist():
+        n, T, A, C = d[E_N], d[E_T], d[E_A], d[E_C]
+        if not (1 <= A <= 256 and C >= 1 and A * C <= 1 << 16
+                and 1 <= T <= 1 << 23 and 0 <= n <= T * LANES):
+            raise ValueError(f"rans_encode_blocks: bad block A={A}, C={C}, "
+                             f"T={T}, n={n}")
+        k = _order(A, C)
+        if k is None or k > MAX_ORDER or (k and not d[E_CHUNKED]):
+            raise ValueError(
+                f"rans_encode_blocks: C={C} contexts over A={A} symbols: "
+                f"want C = A^k, k <= {MAX_ORDER}, and k = 0 for strided "
+                "lanes")
+        for nm, off, size_, have in (
+                ("syms", d[E_SYMS], n, syms.shape[0]),
+                ("freq", d[E_FREQ], C * A, freq.shape[0]),
+                ("words", d[E_WORDS], n, 1 << 31)):
+            if off < 0 or off + size_ > have:
+                raise ValueError(f"rans_encode_blocks: {nm} range "
+                                 f"[{off}, {off + size_}) outside {have}")
+        need, packed = _enc_smem(A, C)
+        smem = max(smem, need)
+        size = max(size, d[E_WORDS] + n)
+        more.append((k, int(packed)))
+        parts.append((d[E_WORDS], d[E_WORDS] + n))
+        if n:       # a symbol id past its row would read another row
+            bad |= syms[d[E_SYMS]: d[E_SYMS] + n].max().to(torch.int64) >= A
+    parts.sort()
+    if any(a[1] > b[0] for a, b in zip(parts, parts[1:])):
+        raise ValueError("rans_encode_blocks: the blocks' words overlap")
+    if max(syms.shape[0], freq.shape[0]) >= 1 << 31:
+        raise ValueError("rans_encode_blocks: the kernel indexes with 32 "
+                         "bits; split the batch")
+    if freq.shape[0]:
+        bad |= _u16(freq).max() > M
+    if bool(bad):
+        raise ValueError("rans_encode_blocks: a symbol id outside its "
+                         f"alphabet, or a frequency above {M}")
+    B = desc.shape[0]
+    return torch.cat([desc, torch.tensor(more, dtype=torch.int64
+                                         ).view(B, 2)], dim=1).contiguous(), \
+        smem, size
+
+
+def rans_encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
+                       desc: torch.Tensor):
+    """Reverse rANS scan of B blocks in one kernel launch: (head [B, 256]
+    uint32, words uint16). head holds each block's 128 final lane states,
+    then its 128 words per lane; words holds, from the block's E_WORDS
+    offset on, its lane streams as a block header orders them: each lane's
+    emitted 16-bit words in decode read order, lanes concatenated in lane
+    order (the sum of the block's words per lane says how many; what lies
+    beyond them, up to the n the block was given room for, is undefined).
+
+    syms: 1-d uint8, the blocks' symbol ids, each below its block's A;
+    freq: 1-d uint16, the blocks' [C, A] quantized frequency rows as their
+    headers will hold them, no entry above 4096; ``desc``: [B, 8] int64 on
+    the CPU, one row per block in the ``E_*`` columns (checked here and
+    uploaded). Lane l owns symbols l, l + 128, ... of its block, or with
+    E_CHUNKED the T symbols from l * T; slots past the block's n symbols
+    pass the state through. The context of a slot is the k symbols before
+    it in its lane (C = A^k, k <= 4; chunked lanes only), symbol 0 before
+    the lane's first. A symbol of frequency 0 is coded as frequency 1.
+
+    On CUDA tensors this launches the kernel once, whatever B is; on CPU
+    tensors the plain version loops over the blocks, finds each slot's
+    frequencies with torch ops and runs ``_encode_plain``. Replaces
+    ``device_rans._encode_program`` and ``device_ctx_rans._encode_program``,
+    the host gathers before them and the loop over blocks around them."""
+    full, smem, size = _plan_encode(syms, freq, desc)
+    dev = syms.device
+    if dev.type == "cpu":
+        return _encode_blocks_plain(syms, freq, full, size)
+    cuda.require_cuda(syms)
+    _kernel_layout_agrees()
+    B = len(full)
+    head = torch.empty((B, 2 * LANES), dtype=torch.uint32, device=dev)
+    words = torch.empty(size, dtype=torch.uint16, device=dev)
+    scratch = torch.empty(size, dtype=torch.uint16, device=dev)
+    if B:
+        cuda.launch("mtc_rans_encode", syms, freq, full.to(dev), B, smem,
+                    head, scratch, words)
+    return head, words

@@ -9,7 +9,7 @@ compress of N_READS reads (default 5,000,000, chip_smoke's phase 2, so that
 every block has the main path's shape; 1,000,000 is quicker and leaves the
 dzt literal block at T = 16384), and phase 1's rANS checks on that archive's
 streams: encode and decode kernels against their plain versions on three
-blocks, the two batched decodes, all timed. The last line is the two
+blocks, the two batches each way, all timed. The last line is the two
 kernels' entries of chip_smoke's JSON line (without ``launches``). Any
 failure ends the run with a traceback and a non-zero exit.
 """

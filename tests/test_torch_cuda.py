@@ -20,7 +20,8 @@ from minicom_tpu_torch.entropy import backend, device_ctx_rans, device_rans
 from minicom_tpu_torch.ops import cuda, rans
 from minicom_tpu_torch.ops.consensus import consensus_vote
 from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
-                                        rans_decode_blocks, rans_encode)
+                                        rans_decode_blocks,
+                                        rans_encode_blocks)
 from minicom_tpu_torch.ops.sketch import (sketch_reads_gather,
                                           sketch_windowed_compact32)
 from minicom_tpu_torch.ops.verify import popcount_verify
@@ -149,18 +150,116 @@ def test_rans_kernels_match_plain(dev, codec, payload):
         assert n1["mtc_rans_decode"] > n0.get("mtc_rans_decode", 0)
 
 
-@pytest.mark.parametrize("T", [256, 1000, 4096])
-def test_rans_encode_kernel_matches_plain_any_slots(dev, T):
-    """Arbitrary slot grids: f = 0 pad slots, f = M, holes in the mask."""
-    rng = np.random.default_rng(T)
-    f = rng.integers(0, 4097, (T, LANES)).astype(np.uint32)
-    c = (rng.integers(0, 4097, (T, LANES)) % (4097 - f)).astype(np.uint32)
-    valid = rng.random((T, LANES)) < 0.9
-    args = [torch.from_numpy(a) for a in (f, c, valid)]
-    want = rans_encode(*args)
-    got = rans_encode(*(a.to(dev) for a in args))
-    for w, g in zip(want, got):
-        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+def random_encode_batch(rng, specs, rows="M", lead=0):
+    """A batch for ``rans_encode_blocks`` from ``specs``, one (A, k, T,
+    chunked, n, kind) per block: symbols of ``kind`` ("rand": uniform;
+    "markov": a walk, so contexts matter; "one": the last symbol only, with
+    rows that give it frequency M), random quantized rows with
+    zero-frequency symbols (row 1 unused where C > 2); ``rows="any"``
+    instead draws every frequency from 0..M, so rows sum to anything.
+    ``lead`` bytes before the first block put every block off a 16-byte
+    boundary. Returns (syms, freq, desc) as CPU tensors."""
+    syms, freqs = [np.zeros(lead, np.uint8)], []
+    desc = np.zeros((len(specs), rans.ENC_FIELDS), np.int64)
+    s_off, f_off = lead, 0
+    for d, (A, k, T, chunked, n, kind) in zip(desc, specs):
+        C = A ** k
+        if kind == "one":
+            sy = np.full(n, A - 1)
+        elif kind == "markov":
+            sy = rng.integers(-1, 2, n).cumsum() % A
+        else:
+            sy = rng.integers(0, A, n)
+        p = rng.random((C, A)) * (rng.random((C, A)) < 0.7)
+        p[:, 0] += 1e-3
+        fq = np.stack([rng.multinomial(M, r / r.sum()) for r in p])
+        if kind == "one":
+            fq[:] = 0
+            fq[:, A - 1] = M
+        elif rows == "any":
+            fq = rng.integers(0, M + 1, (C, A))
+        if C > 2:
+            fq[1] = 0
+        syms.append(sy.astype(np.uint8))
+        freqs.append(fq.reshape(-1).astype(np.uint16))
+        d[:] = (s_off, f_off, s_off, n, T, A, C, chunked)
+        s_off += n
+        f_off += C * A
+    return (torch.from_numpy(np.concatenate(syms)),
+            torch.from_numpy(np.concatenate(freqs)), torch.from_numpy(desc))
+
+
+ENC_BATCHES = {   # name: [(A, k, T, chunked, n, kind)]
+    "order0-B1": [(256, 0, 256, False, 30_000, "rand")],
+    # the tail block's lanes from 100 on have no valid step
+    "order0-B2-tiers": [(256, 0, 512, False, 65_536, "markov"),
+                        (256, 0, 256, False, 100, "rand")],
+    "ctx-B5": [(16, 2, 512, True, 60_000, "markov"),
+               (4, 4, 256, True, 32_768, "markov"),
+               (1, 0, 256, True, 5, "rand"),
+               (200, 1, 256, True, 20_000, "rand"),
+               (16, 1, 1024, True, 131_072, "markov")],
+    "mixed-B2": [(256, 0, 256, False, 0, "rand"),
+                 (4, 1, 256, True, 32_000, "markov")],
+    # frequency rows of exactly 128 KB: needs the shared-memory opt-in
+    "cap-B2": [(16, 3, 256, True, 32_768, "markov"),
+               (256, 1, 256, True, 30_000, "rand")],
+    # f = M: a step leaves the state as it is, no lane emits
+    "one-symbol-B2": [(4, 2, 256, True, 30_000, "one"),
+                      (256, 0, 256, False, 30_000, "one")],
+}
+
+
+def assert_same_encoding(got, want, desc):
+    """(head, words) pairs equal: every state and count, and each block's
+    lane streams up to the sum of its counts."""
+    (gh, gw), (wh, ww) = ((h.cpu().numpy(), w.cpu().numpy())
+                          for h, w in (got, want))
+    np.testing.assert_array_equal(gh, wh)
+    for b, d in enumerate(desc.numpy()):
+        lo, hi = d[rans.E_WORDS], d[rans.E_WORDS] + int(wh[b, LANES:].sum())
+        np.testing.assert_array_equal(gw[lo:hi], ww[lo:hi],
+                                      err_msg=f"block {b}")
+
+
+@pytest.mark.parametrize("rows,lead", [("M", 0), ("any", 0), ("M", 3)])
+@pytest.mark.parametrize("name", list(ENC_BATCHES))
+def test_rans_encode_blocks_kernel_matches_plain(dev, name, rows, lead):
+    """Every block of a batch in one launch == the plain version, states,
+    counts and words: order 0 and orders 1 to 4, both lane layouts, tiers
+    256 to 1024, A from 1 to 256, tables at the 128 KB cap, n = 0, lanes
+    with no valid step, a one-symbol block, rows that do not sum to M,
+    blocks off a 16-byte boundary."""
+    syms, freq, desc = random_encode_batch(
+        np.random.default_rng(len(name) + lead), ENC_BATCHES[name], rows, lead)
+    want = rans_encode_blocks(syms, freq, desc)
+    n0 = cuda.launches["mtc_rans_encode"]
+    got = rans_encode_blocks(syms.to(dev), freq.to(dev), desc)
+    assert cuda.launches["mtc_rans_encode"] == n0 + 1
+    assert_same_encoding(got, want, desc)
+
+
+def test_rans_encode_then_decode_blocks_gives_symbols_back(dev):
+    """Blocks of both coders in one encode launch, then one decode launch:
+    the symbols come back."""
+    rng = np.random.default_rng(3)
+    parts = [rng.choice([3, 7, 7, 7, 9], 40_000).astype(np.uint8)]
+    blocks = [device_rans.Block(
+        40_000, 512, 256, 1, False, device_rans.quantize_freqs(
+            np.bincount(parts[0], minlength=256)))]
+    for A, k, n in ((16, 2, 50_000), (4, 4, 32_768), (1, 2, 700),
+                    (200, 2, 20_000), (16, 3, 0)):
+        parts.append((rng.integers(-1, 2, n).cumsum() % A).astype(np.uint8))
+        blocks.append(device_ctx_rans._model(parts[-1], A, k))
+    n0 = dict(cuda.launches)
+    coded = device_rans.encode_blocks(np.concatenate(parts), blocks, dev)
+    got = device_rans.decode_blocks(coded, dev)
+    assert cuda.launches["mtc_rans_encode"] == n0.get("mtc_rans_encode",
+                                                      0) + 1
+    assert cuda.launches["mtc_rans_decode"] == n0.get("mtc_rans_decode",
+                                                      0) + 1
+    for g, w in zip(got, parts):
+        np.testing.assert_array_equal(g, w)
 
 
 def test_rans_decode_kernel_matches_plain_corrupt_words(dev):
@@ -251,17 +350,20 @@ def test_rans_decode_blocks_kernel_matches_plain(dev, name, corrupt):
 @pytest.mark.parametrize("codec", ["trans", "trans2", "dzt"])
 def test_rans_multiblock_stream_is_one_launch(dev, codec, monkeypatch):
     """A stream of several blocks (BLOCK shrunk): coded alike on the card
-    and the CPU, decoded by one launch (two for dzt's two planes)."""
+    and the CPU, coded by one launch and decoded by one launch (two each
+    for dzt's two planes)."""
     monkeypatch.setattr(device_rans, "BLOCK", 1 << 15)
     monkeypatch.setattr(device_ctx_rans, "BLOCK", 1 << 15)
     data = (_payload("dna") if codec == "dzt" else
             _payload("markov") + _payload("text") + _payload("skewed"))
+    planes = 2 if codec == "dzt" else 1
+    n0 = cuda.launches["mtc_rans_encode"]
     blob = backend.compress(codec, data, dev)
+    assert cuda.launches["mtc_rans_encode"] - n0 == planes
     assert blob == backend.compress(codec, data, torch.device("cpu"))
     n0 = cuda.launches["mtc_rans_decode"]
     assert backend.decompress(codec, blob, len(data), dev) == data
-    assert (cuda.launches["mtc_rans_decode"] - n0
-            == (2 if codec == "dzt" else 1))
+    assert cuda.launches["mtc_rans_decode"] - n0 == planes
 
 
 def test_verify_kernel_matches_plain(dev):

@@ -26,9 +26,10 @@ from minicom_tpu_torch.entropy import backend as tbackend
 from minicom_tpu_torch.entropy import device_ctx_rans as tctx
 from minicom_tpu_torch.entropy import device_rans as trans
 from minicom_tpu_torch.ops import cuda, rans
-from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
-                                        rans_decode_blocks, rans_encode)
-from tests.test_torch_cuda import random_batch
+from minicom_tpu_torch.ops.rans import (LANES, M, _encode_plain,
+                                        rans_decode, rans_decode_blocks,
+                                        rans_encode_blocks)
+from tests.test_torch_cuda import random_batch, random_encode_batch
 
 CPU = torch.device("cpu")
 _LOCK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -104,11 +105,11 @@ def test_order0_programs_match_jax(payload):
                           ).reshape(T, LANES)
     valid = (np.arange(T * LANES) < n).reshape(T, LANES)
     freq_q = jrans.quantize_freqs(np.bincount(syms, minlength=256))
-    freq, cum, slot = trans._tables(freq_q)
+    freq, cum, slot = jrans._tables(freq_q)
     js, jw, jc = (np.asarray(x) for x in jrans._encode_program(T)(
         jnp.asarray(grid), jnp.asarray(valid), jnp.asarray(freq),
         jnp.asarray(cum)))
-    ts, tw, tc = (x.numpy() for x in rans_encode(
+    ts, tw, tc = (x.numpy() for x in _encode_plain(
         _t(freq[grid]), _t(cum[grid]), _t(valid)))
     np.testing.assert_array_equal(ts, js)
     np.testing.assert_array_equal(tw, jw)
@@ -149,8 +150,8 @@ def test_context_programs_match_jax(k, A):
     c_g = cum.reshape(-1)[flat].astype(np.uint32)
     js, jw, jc = (np.asarray(x) for x in jctx._encode_program(T)(
         jnp.asarray(f_g), jnp.asarray(c_g), jnp.asarray(valid)))
-    ts, tw, tc = (x.numpy() for x in rans_encode(_t(f_g), _t(c_g),
-                                                 _t(valid)))
+    ts, tw, tc = (x.numpy() for x in _encode_plain(_t(f_g), _t(c_g),
+                                                   _t(valid)))
     np.testing.assert_array_equal(ts, js)
     np.testing.assert_array_equal(tw, jw)
     np.testing.assert_array_equal(tc, jc)
@@ -265,12 +266,15 @@ def test_decode_blocks_checks_its_inputs():
 
 
 def test_scan_wrappers_check_their_inputs():
-    z = torch.zeros((4, LANES), dtype=torch.uint32)
     v = torch.ones((4, LANES), dtype=torch.bool)
-    with pytest.raises(ValueError):           # f not uint32
-        rans_encode(z.to(torch.int64), z, v)
-    with pytest.raises(ValueError):           # not 128 lanes
-        rans_encode(z[:, :64], z[:, :64], v[:, :64])
+    sy = torch.zeros(512, dtype=torch.uint8)
+    fq = torch.full((256,), 16, dtype=torch.uint16)
+    d = torch.tensor([[0, 0, 0, 512, 4, 256, 1, 0]])
+    rans_encode_blocks(sy, fq, d)
+    with pytest.raises(ValueError):           # symbols not uint8
+        rans_encode_blocks(sy.to(torch.int64), fq, d)
+    with pytest.raises(ValueError):           # a descriptor of other width
+        rans_encode_blocks(sy, fq, d[:, :7])
     st = torch.zeros(LANES, dtype=torch.uint32)
     w = torch.zeros((1, LANES), dtype=torch.uint16)
     fr = torch.zeros(256, dtype=torch.uint32)
@@ -279,6 +283,202 @@ def test_scan_wrappers_check_their_inputs():
         rans_decode(st, w, v, fr, fr, sl, 256, 2)
     with pytest.raises(ValueError):           # no word rows
         rans_decode(st, w[:0], v, fr, fr, sl, 256, 1)
+
+
+# ------------------------------------------------------------- encode batch
+
+def _lane_words(words, head, d):
+    """A block's lane streams from ``rans_encode_blocks``' output, as a
+    list of 128 arrays."""
+    counts = head[LANES:].astype(np.int64)
+    ends = d[rans.E_WORDS] + np.cumsum(counts)
+    return [words[e - c: e] for c, e in zip(counts, ends)]
+
+
+@pytest.mark.parametrize("k,A", [(0, 256), (1, 16), (2, 16), (4, 4),
+                                 (1, 200), (2, 1)])
+def test_plain_encode_blocks_match_jax_programs(k, A):
+    """A batch of five blocks through the plain ``rans_encode_blocks`` ==
+    the JAX ``_encode_program`` of each block on the grids the JAX host
+    code would hand it: states, counts, every lane's words. Order 0 (k = 0:
+    strided lanes, device_rans) and the context coder (chunked lanes,
+    device_ctx_rans); a block of another tier, n = 0, n = 1, n one short of
+    a tier, a one-symbol block."""
+    rng = np.random.default_rng(10 * k + A)
+    C, chunked = A ** k, k > 0
+    parts, blocks = [], []
+    for T, n, one in ((512, 60_000, False), (256, 0, False), (256, 1, False),
+                      (256, 256 * LANES - 1, False), (256, 30_000, True)):
+        sy = (np.full(n, A - 1) if one
+              else rng.integers(-1, 2, n).cumsum() % A).astype(np.uint8)
+        parts.append(sy)
+        blocks.append(tctx._model(sy, A, k) if chunked else trans._model(sy))
+        assert (blocks[-1].T, blocks[-1].C) == (T, C)
+    syms, freq, desc = trans.pack_symbols(np.concatenate(parts), blocks, CPU)
+    head, words = (x.numpy() for x in rans_encode_blocks(syms, freq, desc))
+    for b, (blk, sy) in enumerate(zip(blocks, parts)):
+        T, n = blk.T, blk.n
+        pad = np.concatenate([sy, np.zeros(T * LANES - n, np.uint8)])
+        idx = np.arange(T * LANES)
+        if chunked:
+            grid = pad.reshape(LANES, T).T.astype(np.int32)
+            valid = np.ascontiguousarray(idx.reshape(LANES, T).T < n)
+            fq = blk.freq.reshape(C, A)
+            cum = np.zeros((C, A), np.int64)
+            cum[:, 1:] = np.cumsum(fq[:, :-1], axis=1)
+            at = jctx._ctx_grid(grid, k, A).astype(np.int64) * A + grid
+            want = jctx._encode_program(T)(
+                jnp.asarray(fq.reshape(-1)[at].astype(np.uint32)),
+                jnp.asarray(cum.reshape(-1)[at].astype(np.uint32)),
+                jnp.asarray(valid))
+        else:
+            fr, cum, _ = jrans._tables(blk.freq)
+            want = jrans._encode_program(T)(
+                jnp.asarray(pad.reshape(T, LANES)),
+                jnp.asarray(idx.reshape(T, LANES) < n), jnp.asarray(fr),
+                jnp.asarray(cum))
+        js, jw, jc = (np.asarray(x) for x in want)
+        np.testing.assert_array_equal(head[b, :LANES], js, f"block {b}")
+        np.testing.assert_array_equal(head[b, LANES:], jc, f"block {b}")
+        for l, got in enumerate(_lane_words(words, head[b], desc[b].numpy())):
+            np.testing.assert_array_equal(got, jw[: jc[l], l],
+                                          f"block {b} lane {l}")
+
+
+@pytest.mark.parametrize("k,A,chunked,T,n", [
+    (0, 256, False, 256, 30_000), (0, 256, False, 256, 100),
+    (1, 16, True, 256, 32_768), (2, 16, True, 512, 40_000),
+    (4, 4, True, 256, 777), (3, 16, True, 256, 20_000), (2, 1, True, 256, 9),
+    (4, 4, True, 3, 300)])
+def test_plain_slot_gathers_equal_host_grids(k, A, chunked, T, n):
+    """What the plain encode finds per slot with torch ops (context,
+    frequency, cumulative frequency, validity) == the numpy grids of the
+    JAX package's host code (``_ctx_grid`` and the ``freq[flat]`` /
+    ``cum[flat]`` gathers), on rows with zero-frequency symbols and an
+    unused context."""
+    syms, freq, desc = random_encode_batch(
+        np.random.default_rng(n), [(A, k, T, chunked, n, "markov")])
+    C = A ** k
+    f, c, valid = (x.numpy() for x in rans._slots_plain(
+        syms, freq, n, T, A, C, k, chunked))
+    pad = np.concatenate([syms.numpy(), np.zeros(T * LANES - n, np.uint8)])
+    idx = np.arange(T * LANES)
+    if chunked:
+        grid = pad.reshape(LANES, T).T.astype(np.int32)
+        want_valid = idx.reshape(LANES, T).T < n
+    else:
+        grid = pad.reshape(T, LANES).astype(np.int32)
+        want_valid = idx.reshape(T, LANES) < n
+    fq = freq.numpy().reshape(C, A).astype(np.int64)
+    cum = np.zeros((C, A), np.int64)
+    cum[:, 1:] = np.cumsum(fq[:, :-1], axis=1)
+    at = jctx._ctx_grid(grid, k, A).astype(np.int64) * A + grid
+    np.testing.assert_array_equal(valid, want_valid)
+    np.testing.assert_array_equal(f, fq.reshape(-1)[at])
+    np.testing.assert_array_equal(c, cum.reshape(-1)[at])
+
+
+@pytest.mark.parametrize("k,A,n", [(1, 16, 40_000), (2, 16, 32_768),
+                                   (4, 4, 5), (2, 200, 1000), (2, 1, 300),
+                                   (1, 7, 0)])
+def test_context_counts_equal_grid_counts(k, A, n):
+    """The (context, symbol) counts taken on the stream as it lies ==
+    those of the JAX package's [T, 128] grids."""
+    rng = np.random.default_rng(n + k)
+    syms = rng.integers(0, A, n).astype(np.uint8)
+    k = tctx._feasible_k(A, k)
+    T = tctx._tier_chunk(max(1, -(-n // LANES)))
+    grid = np.concatenate([syms, np.zeros(T * LANES - n, np.uint8)]
+                          ).reshape(LANES, T).T.astype(np.int32)
+    valid = np.arange(T * LANES).reshape(LANES, T).T < n
+    at = jctx._ctx_grid(grid, k, A).astype(np.int64) * A + grid
+    want = np.bincount(at[valid], minlength=A ** (k + 1)).reshape(A ** k, A)
+    np.testing.assert_array_equal(tctx._context_counts(syms, A, k, T), want)
+
+
+def _div_by_recip(xr, m):
+    """csrc/rans.cu's ``code_slot``: xr // f from m = floor((2^64 - 1) / f)
+    as the high half of xr * (m + 1), two 32 x 32 -> 64 bit multiply-adds.
+    Python integers, or numpy uint64 (whose products wrap as the kernel's
+    would)."""
+    p0 = xr * (m & 0xFFFFFFFF) + xr
+    p1 = xr * (m >> 32) + (p0 >> 32)
+    return p1 >> 32
+
+
+@pytest.mark.parametrize("lo", [1, 1025, 2049, 3073])
+def test_division_by_reciprocal_is_exact(lo):
+    """The encode kernel's quotient == xr // f for every f in 1..4096 and
+    xr below f * 2^20 (and up to 2^32): the edges in Python integers, where
+    a sum that passed 2^64 would show, and 10^5 random values for each f in
+    numpy uint64. Its emit test, one compare against (f << 20) - 1 in
+    uint32, == (x >> 20) >= f on the same values."""
+    rng = np.random.default_rng(lo)
+    for f in range(lo, lo + 1024):
+        m = ((1 << 64) - 1) // f
+        top = f << 20
+        mult = [int(v) * f for v in rng.integers(0, 1 << 20, 8)]
+        for xr in {0, 1, 1 << 16, top - 1, top - f, top % (1 << 32), *mult,
+                   *(v + 1 for v in mult), *(max(v - 1, 0) for v in mult),
+                   (1 << 32) - 1}:
+            p0 = xr * (m & 0xFFFFFFFF) + xr
+            p1 = xr * (m >> 32) + (p0 >> 32)
+            assert p0 < 1 << 64 and p1 < 1 << 64
+            assert _div_by_recip(xr, m) == xr // f, (xr, f)
+            assert (xr > ((f << 20) - 1) % (1 << 32)) == ((xr >> 20) >= f)
+        xr = rng.integers(0, top, 100_000, dtype=np.uint64)
+        got = _div_by_recip(xr, np.uint64(m))
+        np.testing.assert_array_equal(got, xr // np.uint64(f), str(f))
+
+
+def test_encode_blocks_checks_its_inputs():
+    syms, freq, desc = random_encode_batch(
+        np.random.default_rng(0), [(4, 2, 256, True, 1000, "rand"),
+                                   (256, 0, 256, False, 500, "rand")])
+    rans_encode_blocks(syms, freq, desc)
+    for row, col, value in (
+            (0, rans.E_A, 0), (0, rans.E_A, 257), (0, rans.E_C, 1 << 15),
+            (0, rans.E_C, 12),                  # not a power of A
+            (0, rans.E_T, 0), (0, rans.E_N, 256 * 128 + 1),
+            (0, rans.E_SYMS, -1), (1, rans.E_SYMS, 1001),   # past the end
+            (1, rans.E_FREQ, 65), (0, rans.E_WORDS, 1 << 31),
+            (1, rans.E_WORDS, 999),             # onto block 0's words
+            (1, rans.E_CHUNKED, 1), (0, rans.E_CHUNKED, 0)):
+        bad = desc.clone()
+        bad[row, col] = value
+        if (row, col) == (1, rans.E_CHUNKED):   # order 0, chunked: allowed
+            rans_encode_blocks(syms, freq, bad)
+            continue
+        with pytest.raises(ValueError):
+            rans_encode_blocks(syms, freq, bad)
+    five = torch.tensor([[0, 0, 0, 100, 256, 2, 32, 1]])   # k = 5
+    with pytest.raises(ValueError, match="k <= 4"):
+        rans_encode_blocks(torch.zeros(100, dtype=torch.uint8),
+                           torch.zeros(64, dtype=torch.uint16), five)
+    with pytest.raises(ValueError, match="outside its alphabet"):
+        rans_encode_blocks(syms + 4, freq, desc)
+    with pytest.raises(ValueError, match="frequency above"):
+        rans_encode_blocks(syms, _t(freq.numpy() + 4096), desc)
+    with pytest.raises(ValueError, match="devices"):
+        rans_encode_blocks(syms, freq.to("meta"), desc)
+    with pytest.raises(ValueError, match="on the CPU"):
+        rans_encode_blocks(syms, freq, desc.to("meta"))
+    head, words = rans_encode_blocks(syms[:0], freq[:0], desc[:0])
+    assert head.shape == (0, 2 * LANES) and words.shape == (0,)
+    with pytest.raises(ValueError, match="symbols for blocks"):
+        trans.encode_blocks(np.zeros(5, np.uint8), [trans._model(
+            np.zeros(4, np.uint8))], CPU)
+
+
+@pytest.mark.parametrize("data", [b"", b"\x07" * 50, bytes(range(256)) * 3,
+                                  b"17G44\n0\n" * 9])
+def test_alphabet_by_bincount_equals_unique(data):
+    buf = np.frombuffer(data, np.uint8)
+    alphabet, ids = tctx.remap(buf)
+    want = np.unique(buf) if len(buf) else np.zeros(1, np.uint8)
+    np.testing.assert_array_equal(alphabet, want)
+    assert alphabet.dtype == np.uint8 and ids.dtype == np.uint8
+    np.testing.assert_array_equal(alphabet[ids], buf)
 
 
 # ------------------------------------------------------------- stream level
