@@ -93,9 +93,9 @@ from minicom_tpu_torch.io import container, fastq
 from minicom_tpu_torch.ops import consensus, cuda, rans, sketch, verify
 from minicom_tpu_torch.ops.pack import (pack_2bit_words, popcount_u32,
                                         revcomp_codes)
-from minicom_tpu_torch.pipeline import classify, cluster
-from minicom_tpu_torch.pipeline.merge import (_batch_m, _rows_tile,
-                                              merge_contigs)
+from minicom_tpu_torch.pipeline import classify, cluster, merge
+from minicom_tpu_torch.pipeline.merge import (_LMAX_FLOOR, _batch_m,
+                                              _rows_tile, merge_contigs)
 from minicom_tpu_torch.stats import StageStats
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -239,7 +239,8 @@ def phase1_sketch_reads(dev, report):
 def phase1_sketch_windowed(dev, report):
     rng = np.random.default_rng(2)
     k, w, cap = 31, 19, 128
-    err, ms_sum, plain_sum, nbytes, ops = 0, 0.0, 0.0, 0, 0.0
+    err, ms_sum, plain_sum, nbytes = 0, 0.0, 0.0, 0
+    starts_all = starts_need = 0
     for Lmax in (128, 512, 2048, 8192):
         rows = _rows_tile(Lmax)
         we, mb = min(w, Lmax - k + 1), _batch_m(Lmax, k, w, cap)
@@ -273,15 +274,27 @@ def phase1_sketch_windowed(dev, report):
         ms_sum += ms
         plain_sum += plain_ms
         nbytes += _nbytes(*args, *outs)
-        ops += float(np.maximum(lens - k + 1, 0).sum()) * OPS["kmer_window"]
+        last = np.where(nv > 0, meta[np.arange(rows), np.maximum(nv - 1, 0)]
+                        >> 1, 0)
+        need = needed_starts(lens, k, w, mb, nv, last)
+        starts_all += int(np.maximum(lens - k + 1, 0).sum())
+        starts_need += int(need.sum())
         print(f"[1] sketch_windowed_compact32 rung {Lmax} ({rows} rows, "
-              f"mb={mb}): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; "
-              "equal to plain and host")
+              f"mb={mb}, {int(need.sum())} of "
+              f"{int(np.maximum(lens - k + 1, 0).sum())} k-mer starts "
+              f"needed): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; equal "
+              "to plain and host")
+    b_all = _bound(nbytes, starts_all * OPS["kmer_window"])
+    print(f"[1] sketch_windowed_compact32, 4 rungs: kernel {ms_sum:.4f} ms; "
+          f"bound {b_all['bound_ms']:.5f} ms counting every k-mer start "
+          f"({starts_all}), the reported bound counts the {starts_need} "
+          "needed")
     report["mtc_sketch_windowed"] = dict(
         name="sketch_windowed_compact32", route="cuda",
         source="minicom_tpu_torch/csrc/sketch.cu",
         replaces="minicom_tpu/ops/pallas_sketch.py:93", max_abs_err=err,
-        ms=ms_sum, plain_ms=plain_sum, **_bound(nbytes, ops))
+        ms=ms_sum, plain_ms=plain_sum,
+        **_bound(nbytes, starts_need * OPS["kmer_window"]))
 
 
 def phase1_consensus(dev, fastq_path, report):
@@ -612,6 +625,89 @@ class _LaunchTimer:
         return out
 
 
+def _mb_of(lens, k, w, cap):
+    """Each contig's slot count: its rung's ``_batch_m`` (merge's plan)."""
+    n = np.maximum(lens, k + 1)
+    lmax = np.full(len(lens), _LMAX_FLOOR, np.int64)
+    while (lmax < n).any():
+        lmax = np.where(lmax < n, lmax * 4, lmax)
+    s = np.maximum(lmax - k + 1, 1)
+    m = np.minimum(cap, np.maximum(8, (2.2 * s / (w + 1)).astype(np.int64)
+                                   + 8))
+    return np.minimum(cap, (m + 7) & ~7)
+
+
+def needed_starts(lens, k, w, mb, nv, last_end):
+    """The k-mer starts that a contig sketch must rank: every start of a row
+    whose emissions stay under its slot count ``mb``; up to the last kept
+    emission's start plus a window for a row that fills it (past there no
+    window can change what was kept). ``last_end``: the end position of
+    each row's last kept entry."""
+    S = np.maximum(lens.astype(np.int64) - k + 1, 0)
+    cut = np.minimum(S, last_end.astype(np.int64) - k + 1
+                     + np.minimum(w, S))
+    return np.where(nv >= mb, cut, S)
+
+
+class _SketchCalls:
+    """Wraps ``merge.sketch_contigs`` for a span: per call its contigs,
+    their k-mer starts (all, and what the call's data needs: see
+    ``needed_starts``), the bytes the call's function must move, the
+    contig-sketch launches it made and its host wall seconds."""
+
+    def __enter__(self):
+        self.calls = []
+        self._fn = merge.sketch_contigs
+
+        def counted(cs, k, w, rank_cap, device, stats=None):
+            n0 = cuda.launches["mtc_sketch_windowed"]
+            t0 = time.perf_counter()
+            out = self._fn(cs, k, w, rank_cap, device, stats)
+            wall = time.perf_counter() - t0
+            lens = cs.ref_lengths().astype(np.int64)
+            cid, pos = out[1], out[2]
+            nv = np.bincount(cid, minlength=len(lens))
+            last = np.zeros(len(lens), np.int64)
+            np.maximum.at(last, cid, pos)
+            mb = _mb_of(lens, k, w, rank_cap)
+            self.calls.append(dict(
+                rows=len(lens),
+                starts=int(np.maximum(lens - k + 1, 0).sum()),
+                needed=int(needed_starts(lens, k, w, mb, nv, last).sum()),
+                # the rows' bases, (start, length, slots) per row in, the
+                # kept entries (key, meta) and a count per row out
+                bytes=int(lens.sum() + 16 * len(lens) + 8 * len(cid)
+                          + 4 * len(lens)),
+                launches=cuda.launches["mtc_sketch_windowed"] - n0,
+                wall_s=wall))
+            return out
+
+        merge.sketch_contigs = counted
+        return self
+
+    def __exit__(self, *exc):
+        merge.sketch_contigs = self._fn
+
+    def report(self, tag, device_s, substage_s):
+        """Prints the calls and returns their totals."""
+        c = self.calls
+        tot = {key: sum(x[key] for x in c)
+               for key in ("rows", "starts", "needed", "bytes", "launches")}
+        b_all = _bound(tot["bytes"], tot["starts"] * OPS["kmer_window"])
+        b_need = _bound(tot["bytes"], tot["needed"] * OPS["kmer_window"])
+        tot.update(calls=len(c), device_s=device_s, merge_sketch_s=substage_s,
+                   bound_all_ms=b_all["bound_ms"],
+                   bound_needed_ms=b_need["bound_ms"],
+                   bound_by=b_need["bound_by"],
+                   calls_wall_s=sum(x["wall_s"] for x in c))
+        print(f"[{tag}] contig sketch per sketch_contigs call (rows, k-mer "
+              "starts, starts needed, launches): " + json.dumps(
+                  [[x["rows"], x["starts"], x["needed"], x["launches"]]
+                   for x in c]))
+        print(f"[{tag}] contig sketch totals: " + json.dumps(tot))
+        return tot
+
+
 def _require(launched, names, where):
     missing = [k for k in names if launched.get(k, 0) < 1]
     if missing:
@@ -661,7 +757,7 @@ def phase2_end_to_end(dev, tmp):
     print(f"[2] dataset {N_READS} reads x 100 bp generated in "
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    with _LaunchTimer() as lt:
+    with _LaunchTimer() as lt, _SketchCalls() as sk:
         t0 = time.perf_counter()
         summary = compressor.compress(fq, arc, device=dev)
         enc_s = time.perf_counter() - t0
@@ -694,6 +790,11 @@ def phase2_end_to_end(dev, tmp):
     print(f"[2] kernel device seconds during compress: "
           f"{json.dumps(kernel_s)}; {sum(kernel_s.values()) / enc_s:.6f} of "
           "the encode wall")
+    tot = sk.report("2", kernel_s.get("mtc_sketch_windowed", 0.0),
+                    summary.get("merge_sketch_s"))
+    if tot["launches"] > tot["calls"]:
+        raise AssertionError(f"{tot['launches']} contig-sketch launches for "
+                             f"{tot['calls']} sketch_contigs calls")
     return fq, arc, want, lt.launched, summary["archive_bytes"]
 
 
