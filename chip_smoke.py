@@ -120,6 +120,19 @@ def _ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _graph_ms(fn, n: int = 20, reps: int = 10) -> float:
+    """Milliseconds of one fn() from a CUDA graph of n calls replayed
+    (median of reps): for a kernel shorter than its launch from Python,
+    which a CUDA-event pair around one call would time instead."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return _ms(g.replay, reps) / n
+
+
 def _once_ms(fn):
     """(fn(), its milliseconds) from one call bracketed by CUDA events: for
     the plain rANS scans, whose Python loops take seconds a call."""
@@ -236,65 +249,131 @@ def phase1_sketch_reads(dev, report):
         **_bound(_nbytes(c, r, out), n * (L - 31 + 1) * OPS["kmer_min"]))
 
 
+def _sketch_work(lens, k, w, mb, nv, last_end):
+    """(bytes, needed k-mer starts, all k-mer starts) of a contig sketch:
+    the rows' bases and (start, length, slots) in, the kept (key, meta)
+    entries and a count per row out (see ``needed_starts``)."""
+    need = needed_starts(lens, k, w, mb, nv, last_end)
+    return (int(lens.sum()) + 16 * len(lens) + 8 * int(nv.sum())
+            + 4 * len(lens), int(need.sum()),
+            int(np.maximum(lens - k + 1, 0).sum()))
+
+
 def phase1_sketch_windowed(dev, report):
+    """The contig sketch at the merge stage's shapes: 2048 rows of each
+    rung (128 to 8192) at k = 31, w = 19, each rung alone in the dense
+    layout against the plain version and the host twin, then all of them
+    as one batched call (rows in plan order, each rung's mb) against the
+    batched plain version and the host twin; every launch timed."""
     rng = np.random.default_rng(2)
     k, w, cap = 31, 19, 128
-    err, ms_sum, plain_sum, nbytes = 0, 0.0, 0.0, 0
-    starts_all = starts_need = 0
+    lens, refs, mbs, wes, rung_of = [], [], [], [], []
     for Lmax in (128, 512, 2048, 8192):
         rows = _rows_tile(Lmax)
-        we, mb = min(w, Lmax - k + 1), _batch_m(Lmax, k, w, cap)
-        lens = rng.integers(Lmax // 4, Lmax + 1, rows).astype(np.int32)
-        lens[:3] = [0, k - 1, Lmax]
-        starts = np.r_[0, np.cumsum(lens[:-1], dtype=np.int64)]
-        ref = rng.integers(0, 4, int(lens.sum()), dtype=np.uint8)
-        args = [torch.from_numpy(a).to(dev) for a in (ref, starts, lens)]
+        ln = rng.integers(Lmax // 4, Lmax + 1, rows).astype(np.int32)
+        ln[:3] = [0, k - 1, Lmax]
+        refs.append(rng.integers(0, 4, int(ln.sum()), dtype=np.uint8))
+        lens.append(np.sort(ln, kind="stable"))   # plan order in a rung
+        mbs.append(np.full(rows, _batch_m(Lmax, k, w, cap), np.int64))
+        wes.append(np.full(rows, min(w, Lmax - k + 1), np.int32))
+        rung_of.append(Lmax)
+    ref = np.concatenate(refs)
+    lens_all = np.concatenate(lens)
+    starts_all = np.r_[0, np.cumsum(lens_all[:-1], dtype=np.int64)]
+    mb_all, we_all = np.concatenate(mbs), np.concatenate(wes)
+    ref_d = torch.from_numpy(ref).to(dev)
+    hk, hm, hn = native.sketch_windowed_host(
+        ref, starts_all, lens_all, k, we_all, mb_all.astype(np.int32),
+        int(mb_all.max()))
+    err, rung_ms, rung_plain, r0 = 0, [], [], 0
+    for Lmax, ln, mbr in zip(rung_of, lens, mbs):
+        rows, mb = len(ln), int(mbr[0])
+        we = min(w, Lmax - k + 1)
+        st = starts_all[r0:r0 + rows]
+        args = (ref_d, torch.from_numpy(st).to(dev),
+                torch.from_numpy(ln).to(dev))
         key, meta, nv = (x.cpu().numpy() for x in
                          sketch.sketch_windowed_compact32(*args, Lmax, k, we,
                                                           mb))
         pk, pm, pn = (x.cpu().numpy() for x in sketch._sketch_windowed_plain(
             *args, Lmax, k, we, mb))
-        hk, hm, hn = native.sketch_windowed_host(
-            ref, starts, lens, k, np.full(rows, we, np.int32),
-            np.full(rows, mb, np.int32), mb)
         v = np.arange(mb)[None, :] < nv[:, None]
+        h = slice(r0, r0 + rows)
         err = max(err, _equal(f"rung {Lmax} nv", nv, pn),
                   _equal(f"rung {Lmax} key", key[v], pk[v]),
                   _equal(f"rung {Lmax} meta", meta[v], pm[v]))
-        _equal(f"rung {Lmax} nv vs host", nv, hn)
-        _equal(f"rung {Lmax} key vs host", key[v], hk[v])
-        _equal(f"rung {Lmax} meta vs host", meta[v], hm[v])
+        _equal(f"rung {Lmax} nv vs host", nv, hn[h])
+        _equal(f"rung {Lmax} key vs host", key[v], hk[h, :mb][v])
+        _equal(f"rung {Lmax} meta vs host", meta[v], hm[h, :mb][v])
+        desc, tiles, w_eff = sketch._plan(st, ln.astype(np.int64), mbr,
+                                          np.arange(rows) * mb, k, we)
+        desc = torch.from_numpy(desc).to(dev)
         outs = (torch.empty((rows, mb), dtype=torch.uint32, device=dev),
                 torch.empty((rows, mb), dtype=torch.int32, device=dev),
                 torch.empty(rows, dtype=torch.int32, device=dev))
-        ms = _ms(lambda: cuda.launch("mtc_sketch_windowed", *args, rows, k,
-                                     we, mb, *outs), 20)
-        plain_ms = _ms(lambda: sketch._sketch_windowed_plain(
-            *args, Lmax, k, we, mb), 5)
-        ms_sum += ms
-        plain_sum += plain_ms
-        nbytes += _nbytes(*args, *outs)
-        last = np.where(nv > 0, meta[np.arange(rows), np.maximum(nv - 1, 0)]
-                        >> 1, 0)
-        need = needed_starts(lens, k, w, mb, nv, last)
-        starts_all += int(np.maximum(lens - k + 1, 0).sum())
-        starts_need += int(need.sum())
-        print(f"[1] sketch_windowed_compact32 rung {Lmax} ({rows} rows, "
-              f"mb={mb}, {int(need.sum())} of "
-              f"{int(np.maximum(lens - k + 1, 0).sum())} k-mer starts "
-              f"needed): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; equal "
-              "to plain and host")
-    b_all = _bound(nbytes, starts_all * OPS["kmer_window"])
-    print(f"[1] sketch_windowed_compact32, 4 rungs: kernel {ms_sum:.4f} ms; "
-          f"bound {b_all['bound_ms']:.5f} ms counting every k-mer start "
-          f"({starts_all}), the reported bound counts the {starts_need} "
-          "needed")
+        rung_ms.append(_graph_ms(lambda: sketch._launch(
+            ref_d, desc, rows, tiles, k, w_eff, outs)))
+        rung_plain.append(_ms(lambda: sketch._sketch_windowed_plain(
+            *args, Lmax, k, we, mb), 5))
+        print(f"[1] contig sketch rung {Lmax} ({rows} rows, mb={mb}, dense, "
+              f"{tiles} blocks): kernel {rung_ms[-1]:.4f} ms, plain "
+              f"{rung_plain[-1]:.3f} ms; equal to plain and host")
+        r0 += rows
+
+    # the four rungs as one call of the merge stage's entry point
+    n0 = cuda.launches["mtc_sketch_windowed"]
+    key, meta, nv = sketch.sketch_windowed_flat(ref_d, starts_all, lens_all,
+                                                mb_all, k, w)
+    if cuda.launches["mtc_sketch_windowed"] != n0 + 1:
+        raise AssertionError("the batched contig sketch: not one launch")
+    pk, pm, pn = sketch._sketch_windowed_flat_plain(
+        ref_d, starts_all, lens_all, mb_all, k, w)
+    hv = np.arange(hk.shape[1])[None, :] < hn[:, None]
+    err = max(err, _equal("batched nv", nv, pn), _equal("batched key", key, pk),
+              _equal("batched meta", meta, pm))
+    _equal("batched nv vs host", nv, hn)
+    _equal("batched key vs host", key, hk[hv])
+    _equal("batched meta vs host", meta, hm[hv])
+    R = len(lens_all)
+    soff = np.r_[0, np.cumsum(mb_all)[:-1]]
+    desc, tiles, w_eff = sketch._plan(starts_all, lens_all.astype(np.int64),
+                                      mb_all, soff, k, w)
+    desc = torch.from_numpy(desc).to(dev)
+    cap_n = int(mb_all.sum())
+    stage = (torch.empty(cap_n, dtype=torch.uint32, device=dev),
+             torch.empty(cap_n, dtype=torch.int32, device=dev),
+             torch.empty(R, dtype=torch.int32, device=dev))
+    out = torch.empty((cap_n, 2), dtype=torch.int32, device=dev)
+    status = torch.zeros(tiles + 1, dtype=torch.int64, device=dev)
+
+    def batched():   # the ticket and look-back words start at zero
+        status.zero_()
+        sketch._launch(ref_d, desc, R, tiles, k, w_eff, stage, out, status)
+
+    ms = _graph_ms(batched)
+    dense_ms = _graph_ms(lambda: sketch._launch(ref_d, desc, R, tiles, k,
+                                                w_eff, stage))
+    plain_ms = _ms(lambda: sketch._sketch_windowed_flat_plain(
+        ref_d, starts_all, lens_all, mb_all, k, w), 3)
+    last = np.zeros(R, np.int32)
+    ends = np.cumsum(nv) - 1
+    last[nv > 0] = meta[ends[nv > 0]] >> 1
+    nbytes, need, every = _sketch_work(lens_all.astype(np.int64), k, w,
+                                       mb_all, nv, last)
+    b_all = _bound(nbytes, every * OPS["kmer_window"])
+    print(f"[1] contig sketch, the 4 rungs: one launch a rung (dense) "
+          f"{sum(rung_ms):.4f} ms in all, plain {sum(rung_plain):.3f} ms; "
+          f"one batched launch ({R} rows, {tiles} blocks, {len(key)} "
+          f"entries kept, compacted) {ms:.4f} ms (dense: {dense_ms:.4f} ms),"
+          f" plain {plain_ms:.3f} ms; "
+          "equal to plain and host; bound "
+          f"{b_all['bound_ms']:.5f} ms counting every k-mer start ({every}),"
+          f" the reported bound counts the {need} needed")
     report["mtc_sketch_windowed"] = dict(
-        name="sketch_windowed_compact32", route="cuda",
+        name="sketch_windowed_flat", route="cuda",
         source="minicom_tpu_torch/csrc/sketch.cu",
         replaces="minicom_tpu/ops/pallas_sketch.py:93", max_abs_err=err,
-        ms=ms_sum, plain_ms=plain_sum,
-        **_bound(nbytes, starts_need * OPS["kmer_window"]))
+        ms=ms, plain_ms=plain_ms, **_bound(nbytes, need * OPS["kmer_window"]))
 
 
 def phase1_consensus(dev, fastq_path, report):
@@ -663,23 +742,21 @@ class _SketchCalls:
             n0 = cuda.launches["mtc_sketch_windowed"]
             t0 = time.perf_counter()
             out = self._fn(cs, k, w, rank_cap, device, stats)
-            wall = time.perf_counter() - t0
+            t1 = time.perf_counter()
             lens = cs.ref_lengths().astype(np.int64)
             cid, pos = out[1], out[2]
             nv = np.bincount(cid, minlength=len(lens))
+            # a contig's entries lie together, in position order
             last = np.zeros(len(lens), np.int64)
-            np.maximum.at(last, cid, pos)
-            mb = _mb_of(lens, k, w, rank_cap)
+            ends = np.flatnonzero(np.r_[cid[1:] != cid[:-1], True]) \
+                if len(cid) else np.zeros(0, np.int64)
+            last[cid[ends]] = pos[ends]
+            nbytes, need, every = _sketch_work(
+                lens, k, w, _mb_of(lens, k, w, rank_cap), nv, last)
             self.calls.append(dict(
-                rows=len(lens),
-                starts=int(np.maximum(lens - k + 1, 0).sum()),
-                needed=int(needed_starts(lens, k, w, mb, nv, last).sum()),
-                # the rows' bases, (start, length, slots) per row in, the
-                # kept entries (key, meta) and a count per row out
-                bytes=int(lens.sum() + 16 * len(lens) + 8 * len(cid)
-                          + 4 * len(lens)),
+                rows=len(lens), starts=every, needed=need, bytes=nbytes,
                 launches=cuda.launches["mtc_sketch_windowed"] - n0,
-                wall_s=wall))
+                wall_s=t1 - t0, counting_s=time.perf_counter() - t1))
             return out
 
         merge.sketch_contigs = counted
@@ -695,11 +772,15 @@ class _SketchCalls:
                for key in ("rows", "starts", "needed", "bytes", "launches")}
         b_all = _bound(tot["bytes"], tot["starts"] * OPS["kmer_window"])
         b_need = _bound(tot["bytes"], tot["needed"] * OPS["kmer_window"])
-        tot.update(calls=len(c), device_s=device_s, merge_sketch_s=substage_s,
+        # this accounting runs inside the merge_sketch sub-stage: take it out
+        counting = sum(x["counting_s"] for x in c)
+        tot.update(calls=len(c), device_s=device_s,
+                   merge_sketch_s=substage_s - counting,
                    bound_all_ms=b_all["bound_ms"],
                    bound_needed_ms=b_need["bound_ms"],
                    bound_by=b_need["bound_by"],
-                   calls_wall_s=sum(x["wall_s"] for x in c))
+                   calls_wall_s=sum(x["wall_s"] for x in c),
+                   counting_s=counting)
         print(f"[{tag}] contig sketch per sketch_contigs call (rows, k-mer "
               "starts, starts needed, launches): " + json.dumps(
                   [[x["rows"], x["starts"], x["needed"], x["launches"]]

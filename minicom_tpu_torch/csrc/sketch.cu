@@ -26,17 +26,40 @@
 // ops/sketch.py::gather_contig_rows: rows are read straight from the flat
 // contig stream at (start, len), so no padded [rows, Lmax] matrix exists.
 // Position i (k-mer start, valid when i + k <= len) is emitted iff its rank
-// equals the minimum of some window [j, j + we) covering it (windows clipped
-// at the row's valid end; a window with no valid k-mer contributes nothing),
-// and the first mb emissions in position order are written as key32 = rank,
-// meta = end_pos << 1 | strand, with nv = min(emissions, mb). The TPU kernel
-// works on a whole padded row block in VMEM with lane rolls, int32 sign-flip
-// ordering, a Hillis-Steele prefix sum and masked-sum slot selection; here
-// one block walks one row in chunks of kChunk positions held in shared
-// memory with a halo of we-1 on each side, native u32/u64 compares, a warp
-// shuffle scan for the emission rank and a direct store of each kept entry.
-// Bound: the O(k + 2 we) shared-memory operations per position (the row's
-// bytes are read about once); it stops at the first chunk that fills mb.
+// equals the minimum of some window [j, j + we) covering it (j >= 0, windows
+// clipped at the row's valid end, we = min(w, starts of the row); a window
+// with no valid k-mer contributes nothing), and the first mb emissions in
+// position order are kept as key32 = rank, meta = end_pos << 1 | strand,
+// with nv = min(emissions, mb). Every row has its own mb.
+//
+// One launch sketches every row of a call. The host groups the rows into
+// tiles, one block each: up to four consecutive rows with at most kShort
+// k-mer starts (a warp each, one chunk, only __syncwarp), or one longer row
+// (the whole block, chunks of kChunk starts, stopping at the first chunk
+// that fills mb). A chunk, for the warp or the block:
+//  - packs its bases 16 to a word in shared memory; each thread takes a
+//    strip of consecutive starts, extracts the strip's first k-mer from
+//    three words (the reverse complement by reversing its 2-bit groups) and
+//    rolls both across the strip: O(1) per start, not k;
+//  - window minima and the covering maximum by van Herk / Gil-Werman:
+//    prefix and suffix scans over segments of we ranks (one thread a
+//    segment and direction), then one min (max) of two entries a position:
+//    O(1) per position, not we;
+//  - emission slots from __ballot_sync + __popc, one exchange of the warps'
+//    counts per chunk in a block.
+// The TPU kernel works on a whole padded row block in VMEM with lane rolls,
+// int32 sign-flip ordering, a Hillis-Steele prefix sum and masked-sum slot
+// selection; none of that carries over.
+//
+// Layouts. Dense (status == nullptr): row r's entries go to stage + soff[r],
+// and nv[r] is written; that is the [rows, mb] form. Compacted (status
+// given, zeroed, one word per tile and the ticket): blocks take tiles in
+// launch order from a ticket, and each publishes its rows' count and finds
+// the entries before it by decoupled look-back (Merrill and Garland), so the
+// kept entries of every row land in row order in out, as (key, meta) pairs,
+// in the same pass. Bound: the integer operations of the k-mer ranks (about
+// 40 a start); the row's bases are read about once, and a row that fills mb
+// early stops there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,7 +67,6 @@
 namespace {
 
 constexpr uint32_t kU32Max = 0xFFFFFFFFu;
-constexpr int kChunk = 256;  // positions per chunk == threads per block
 constexpr int kReadThreads = 256;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo) {
@@ -89,126 +111,344 @@ sketch_reads_kernel(const uint8_t* __restrict__ codes, int64_t L,
     out[2 * n + i] = none ? 0u : (best_pos << 1) | best_z;
 }
 
-// Exclusive prefix sum of one flag per thread over the block; *total gets
-// the block's sum. Every thread of the block must call it.
-__device__ __forceinline__ int block_exclusive_scan(int flag, int* warp_sums,
-                                                    int* total) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    int v = flag;
-    for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(0xFFFFFFFFu, v, d);
-        if (lane >= d) v += t;
-    }
-    if (lane == 31) warp_sums[warp] = v;
-    __syncthreads();
-    if (warp == 0) {
-        int s = lane < kChunk / 32 ? warp_sums[lane] : 0;
-        for (int d = 1; d < 32; d <<= 1) {
-            const int t = __shfl_up_sync(0xFFFFFFFFu, s, d);
-            if (lane >= d) s += t;
-        }
-        if (lane < kChunk / 32) warp_sums[lane] = s;
-    }
-    __syncthreads();
-    *total = warp_sums[kChunk / 32 - 1];
-    return v - flag + (warp ? warp_sums[warp - 1] : 0);
+constexpr int kThreads = 128;  // threads per block of the contig sketch
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 512;    // k-mer starts per chunk of a row in a block
+constexpr int kShort = 128;    // rows of at most this many starts: a warp each
+constexpr int kEmitRounds = 4;  // ballots a warp takes per chunk
+static_assert(kChunk / kWarps == 32 * kEmitRounds, "block chunk layout");
+static_assert(kShort == 32 * kEmitRounds, "warp chunk layout");
+constexpr unsigned long long kAggregate = 1ULL << 62;  // look-back flags
+constexpr unsigned long long kInclusive = 1ULL << 63;
+constexpr unsigned long long kCountMask = kAggregate - 1;
+
+// Shared memory of one chunk of up to `cap` ranks (with halos): ranks, the
+// two scans, the window minima, the packed bases and the strand bytes, in
+// 4-byte words (a multiple of 4, so every region starts 16-byte aligned).
+__host__ __device__ inline int region_words(int cap) {
+    const int w = 4 * cap + cap / 16 + 6 + (cap + 3) / 4;
+    return (w + 3) & ~3;
 }
 
-__global__ void __launch_bounds__(kChunk)
-sketch_windowed_kernel(const uint8_t* __restrict__ ref,
-                       const int64_t* __restrict__ starts,
-                       const int32_t* __restrict__ lens, int k, int we_max,
-                       int mb, uint32_t* __restrict__ out_key,
-                       int32_t* __restrict__ out_meta,
-                       int32_t* __restrict__ out_nv) {
-    extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ int warp_sums[kChunk / 32];
-    const int64_t row = blockIdx.x;
-    const int64_t len = lens[row];
-    const int64_t S = len - k + 1;  // valid k-mer starts of this row
-    if (S <= 0) {
-        if (threadIdx.x == 0) out_nv[row] = 0;
-        return;
-    }
-    // a window wider than the row's k-mer count covers the same clipped
-    // suffix as one of width S
-    const int we = (int)(we_max < S ? we_max : S);
-    const int halo = we - 1;
-    const int nq = kChunk + 2 * halo;  // ranks per chunk (with halos)
-    const int nj = kChunk + halo;      // window minima per chunk
-    const int nb = nq + k - 1;         // bases per chunk
-    // layout sized by the launcher for we_max >= we
-    const int nq_max = kChunk + 2 * (we_max - 1);
-    uint32_t* s_rank = reinterpret_cast<uint32_t*>(smem);
-    uint32_t* s_wmin = s_rank + nq_max;
-    uint8_t* s_strand = reinterpret_cast<uint8_t*>(s_wmin + kChunk + we_max - 1);
-    uint8_t* s_base = s_strand + nq_max;
+struct Region {
+    uint32_t* h;    // ranks of h index u = position - ub
+    uint32_t* pre;  // segment prefix scans
+    uint32_t* suf;  // segment suffix scans
+    uint32_t* win;  // window minima, 0 for none
+    uint32_t* pk;   // bases from the chunk's first start, 16 to a word
+    uint8_t* z;     // strands
+    __device__ Region(uint32_t* base, int cap)
+        : h(base), pre(base + cap), suf(base + 2 * cap), win(base + 3 * cap),
+          pk(base + 4 * cap),
+          z(reinterpret_cast<uint8_t*>(base + 4 * cap + cap / 16 + 6)) {}
+};
 
-    const uint8_t* seq = ref + starts[row];
-    int count = 0;  // emissions so far; identical in every thread
-    for (int64_t p0 = 0; p0 < S && count < mb; p0 += kChunk) {
-        const int64_t q0 = p0 - halo;  // row position of chunk index 0
-        for (int t = threadIdx.x; t < nb; t += kChunk) {
-            const int64_t g = q0 + t;
-            s_base[t] = (g >= 0 && g < len) ? seq[g] : 0;
-        }
+template <int G>
+__device__ __forceinline__ void group_sync() {
+    if (G == 32) {
+        __syncwarp();
+    } else {
         __syncthreads();
-        for (int t = threadIdx.x; t < nq; t += kChunk) {
-            const int64_t g = q0 + t;
-            uint32_t h = kU32Max;
-            uint8_t z = 0;
-            if (g >= 0 && g < S) {
-                uint64_t fwd = 0, rc = 0;
-                for (int u = 0; u < k; ++u) {
-                    const uint64_t c = s_base[t + u];
-                    fwd = (fwd << 2) | c;
-                    rc |= (c ^ 3ULL) << (2 * u);
-                }
-                if (fwd != rc) {
-                    z = fwd < rc ? 0 : 1;
-                    const uint64_t canon = z ? rc : fwd;
-                    h = mix32((uint32_t)(canon >> 32), (uint32_t)canon);
+    }
+}
+
+// 16 bases from base offset b, the first in the top two bits.
+__device__ __forceinline__ uint32_t bases16(const uint32_t* pk, int b) {
+    return __funnelshift_l(pk[(b >> 4) + 1], pk[b >> 4], 2 * (b & 15));
+}
+
+// The forward k-mer whose first base is at base offset b (2k low bits).
+__device__ __forceinline__ uint64_t kmer_at(const uint32_t* pk, int b, int k) {
+    const int q = b >> 4, s = 2 * (b & 15);
+    const uint32_t hi = __funnelshift_l(pk[q + 1], pk[q], s);
+    const uint32_t lo = __funnelshift_l(pk[q + 2], pk[q + 1], s);
+    return (((uint64_t)hi << 32) | lo) >> (64 - 2 * k);
+}
+
+// Reverse complement of a k-mer: complement, reverse the 32 2-bit groups,
+// drop the 32 - k groups that came from above the k-mer.
+__device__ __forceinline__ uint64_t revcomp(uint64_t x, int k) {
+    x = __brevll(~x);
+    x = ((x >> 1) & 0x5555555555555555ULL) | ((x & 0x5555555555555555ULL) << 1);
+    return x >> (64 - 2 * k);
+}
+
+// pre[i] / suf[i]: the min (kMax: max) of x over i's segment of `seg`
+// entries (segments start at 0) up to i / from i on. One thread walks one
+// segment in one direction.
+template <int G, bool kMax>
+__device__ __forceinline__ void scan_segments(const uint32_t* __restrict__ x,
+                                              uint32_t* __restrict__ pre,
+                                              uint32_t* __restrict__ suf,
+                                              int n, int seg, int t) {
+    const int nseg = (n + seg - 1) / seg;
+    for (int task = t; task < 2 * nseg; task += G) {
+        const bool up = task < nseg;
+        const int a = (up ? task : task - nseg) * seg;
+        const int len = min(seg, n - a);
+        const int step = up ? 1 : -1;
+        uint32_t* out = up ? pre : suf;
+        uint32_t m = kMax ? 0u : kU32Max;
+        int i = up ? a : a + len - 1, d = 0;
+        for (; d + 4 <= len; d += 4, i += 4 * step) {  // four loads in flight
+            uint32_t v[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) v[e] = x[i + e * step];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                m = kMax ? max(m, v[e]) : min(m, v[e]);
+                out[i + e * step] = m;
+            }
+        }
+        for (; d < len; ++d, i += step) {
+            m = kMax ? max(m, x[i]) : min(m, x[i]);
+            out[i] = m;
+        }
+    }
+}
+
+// Sketches one row with a group of G threads (a warp, or the block) on its
+// shared-memory region; writes the first mb emissions to key / meta and
+// returns nv. Every thread of the group must call it.
+template <int G>
+__device__ int sketch_row(const uint8_t* __restrict__ seq, int64_t len, int k,
+                          int w, int mb, uint32_t* __restrict__ key,
+                          int32_t* __restrict__ meta, Region r, int* s_cnt) {
+    constexpr int kGroupWarps = G / 32;
+    const int t = threadIdx.x % G;
+    const int lane = threadIdx.x & 31, warp = t >> 5;
+    const int64_t S = len - k + 1;  // k-mer starts of this row
+    if (S <= 0) return 0;
+    // a window wider than the row covers the same clipped suffix as one of
+    // width S
+    const int we = (int)min((int64_t)w, S);
+    const int cmax = G == 32 ? kShort : kChunk;
+    const uint64_t kmask = (1ULL << (2 * k)) - 1;
+    const int rc_shift = 2 * (k - 1);
+    int count = 0;  // emissions so far; the same in every thread
+    for (int64_t p0 = 0; p0 < S && count < mb; p0 += cmax) {
+        const int C = (int)min((int64_t)cmax, S - p0);
+        const int64_t ub = p0 - (we - 1);  // row position of h index 0
+        const int H = C + 2 * (we - 1);    // ranks: C and a halo each side
+        const int64_t pa = ub > 0 ? ub : 0;
+        const int64_t pb = S < ub + H ? S : ub + H;
+        const int nval = (int)(pb - pa);   // valid starts of the chunk
+        const int off = (int)(pa - ub);    // h index of start pa
+        const int nwords = (nval + k - 1 + 15) / 16 + 2;
+        for (int q = t; q < nwords; q += G) {
+            const int64_t g0 = pa + 16LL * q;
+            uint32_t word = 0;
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+                const uint32_t c = g0 + i < len ? (seq[g0 + i] & 3u) : 0u;
+                word |= c << (30 - 2 * i);
+            }
+            r.pk[q] = word;
+        }
+        group_sync<G>();
+        // ranks: a strip of consecutive starts per thread, k-mers rolled
+        {
+            const int P = (nval + G - 1) / G;
+            const int b = t * P, e = min(b + P, nval);
+            if (b < e) {
+                uint64_t fwd = kmer_at(r.pk, b, k);
+                uint64_t rc = revcomp(fwd, k);
+                uint32_t next = 0;
+                for (int i = b; i < e; ++i) {
+                    if (i > b) {
+                        const int j = i - b - 1;  // the roll's new base
+                        if ((j & 15) == 0) next = bases16(r.pk, b + k + j);
+                        const uint64_t c = next >> 30;
+                        next <<= 2;
+                        fwd = ((fwd << 2) | c) & kmask;
+                        rc = (rc >> 2) | ((c ^ 3ULL) << rc_shift);
+                    }
+                    uint32_t h = kU32Max;
+                    uint8_t z = 0;
+                    if (fwd != rc) {  // palindromes are invalid
+                        z = fwd > rc;
+                        const uint64_t canon = z ? rc : fwd;
+                        h = mix32((uint32_t)(canon >> 32), (uint32_t)canon);
+                    }
+                    r.h[off + i] = h;
+                    r.z[off + i] = z;
                 }
             }
-            s_rank[t] = h;
-            s_strand[t] = z;
+            for (int u = t; u < off; u += G) r.h[u] = kU32Max;
+            for (int u = off + nval + t; u < H; u += G) r.h[u] = kU32Max;
         }
-        __syncthreads();
-        // window j = q0 + u covers ranks [u, u + we); windows starting before
-        // the row and windows with no valid k-mer contribute 0
-        for (int u = threadIdx.x; u < nj; u += kChunk) {
-            uint32_t m = 0;
-            if (q0 + u >= 0) {
-                m = kU32Max;
-                for (int d = 0; d < we; ++d) m = min(m, s_rank[u + d]);
-                if (m == kU32Max) m = 0;
+        group_sync<G>();
+        scan_segments<G, false>(r.h, r.pre, r.suf, H, we, t);
+        group_sync<G>();
+        // window u starts at row position ub + u and spans h[u, u + we);
+        // windows before the row and windows with no valid k-mer give 0
+        const int nwin = C + we - 1;
+        for (int u = t; u < nwin; u += G) {
+            const uint32_t m = min(r.suf[u], r.pre[u + we - 1]);
+            r.win[u] = (ub + u < 0 || m == kU32Max) ? 0u : m;
+        }
+        group_sync<G>();
+        scan_segments<G, true>(r.win, r.pre, r.suf, nwin, we, t);
+        group_sync<G>();
+        // position p0 + v is covered by windows win[v, v + we) and has rank
+        // h[v + we - 1]; each warp takes a contiguous span of positions
+        const int span = ((C + kGroupWarps - 1) / kGroupWarps + 31) & ~31;
+        const int v0 = warp * span;
+        uint32_t masks[kEmitRounds];
+        int mine = 0;
+#pragma unroll
+        for (int it = 0; it < kEmitRounds; ++it) {
+            const int v = v0 + it * 32 + lane;
+            bool emit = false;
+            if (it * 32 < span && v < C) {
+                const uint32_t h = r.h[v + we - 1];
+                emit = h != kU32Max && h == max(r.suf[v], r.pre[v + we - 1]);
             }
-            s_wmin[u] = m;
+            masks[it] = __ballot_sync(0xFFFFFFFFu, emit);
+            mine += __popc(masks[it]);
         }
-        __syncthreads();
-        // position p0 + v sits at rank index v + halo; its covering windows
-        // are s_wmin[v .. v + halo]
-        const int v = threadIdx.x;
-        const int64_t pos = p0 + v;
-        const uint32_t h = s_rank[v + halo];
-        int emit = 0;
-        if (pos < S && h != kU32Max) {
-            uint32_t mx = 0;
-            for (int d = 0; d < we; ++d) mx = max(mx, s_wmin[v + d]);
-            emit = mx == h;
+        int before = 0, total = mine;
+        if (kGroupWarps > 1) {
+            if (lane == 0) s_cnt[warp] = mine;
+            __syncthreads();
+            total = 0;
+            for (int q = 0; q < kGroupWarps; ++q) {
+                before += q < warp ? s_cnt[q] : 0;
+                total += s_cnt[q];
+            }
         }
-        int total;
-        const int slot = count + block_exclusive_scan(emit, warp_sums, &total);
-        if (emit && slot < mb) {
-            out_key[row * mb + slot] = h;
-            out_meta[row * mb + slot] =
-                (int32_t)(((pos + k - 1) << 1) | s_strand[v + halo]);
+        int slot = count + before;
+#pragma unroll
+        for (int it = 0; it < kEmitRounds; ++it) {
+            const uint32_t m = masks[it];
+            if ((m >> lane) & 1u) {
+                const int s = slot + __popc(m & ((1u << lane) - 1u));
+                if (s < mb) {
+                    const int v = v0 + it * 32 + lane;
+                    key[s] = r.h[v + we - 1];
+                    meta[s] = (int32_t)(((p0 + v + k - 1) << 1)
+                                        | r.z[v + we - 1]);
+                }
+            }
+            slot += __popc(m);
         }
         count += total;
-        __syncthreads();  // shared memory is rewritten by the next chunk
+        group_sync<G>();  // the next chunk rewrites the region and s_cnt
     }
-    if (threadIdx.x == 0) out_nv[row] = count < mb ? count : mb;
+    return count < mb ? count : mb;
+}
+
+// rows: [R, 4] int64 (start, len, mb, soff); tiles: [T + 1] int64, the
+// first row of each tile and then R. A tile whose first row has at most
+// short_max starts (short_max > 0) takes a warp per row.
+__global__ void __launch_bounds__(kThreads)
+sketch_windowed_kernel(const uint8_t* __restrict__ ref,
+                       const int64_t* __restrict__ rows,
+                       const int64_t* __restrict__ tiles, int k, int w,
+                       int short_max, int cap_block, int cap_warp,
+                       uint32_t* __restrict__ stage_key,
+                       int32_t* __restrict__ stage_meta,
+                       int32_t* __restrict__ out, int32_t* __restrict__ nv,
+                       unsigned long long* status) {
+    extern __shared__ __align__(16) uint32_t smem[];
+    __shared__ int s_cnt[kWarps];
+    __shared__ int s_nv[kWarps];
+    __shared__ long long s_tile, s_base;
+    if (threadIdx.x == 0) {
+        s_tile = status ? (long long)atomicAdd(&status[gridDim.x], 1ULL)
+                        : (long long)blockIdx.x;
+    }
+    __syncthreads();
+    const int64_t tile = s_tile;
+    const int64_t r0 = tiles[tile];
+    const int nrows = (int)(tiles[tile + 1] - r0);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (short_max > 0 && rows[4 * r0 + 1] - k + 1 <= short_max) {
+        int n = 0;
+        if (warp < nrows) {
+            const int64_t* d = rows + 4 * (r0 + warp);
+            n = sketch_row<32>(ref + d[0], d[1], k, w, (int)d[2],
+                               stage_key + d[3], stage_meta + d[3],
+                               Region(smem + warp * region_words(cap_warp),
+                                      cap_warp),
+                               s_cnt);
+            if (lane == 0) nv[r0 + warp] = n;
+        }
+        if (lane == 0) s_nv[warp] = n;
+    } else {
+        const int64_t* d = rows + 4 * r0;
+        const int n = sketch_row<kThreads>(ref + d[0], d[1], k, w, (int)d[2],
+                                           stage_key + d[3], stage_meta + d[3],
+                                           Region(smem, cap_block), s_cnt);
+        if (threadIdx.x == 0) nv[r0] = s_nv[0] = n;
+    }
+    if (status == nullptr) return;
+    __syncthreads();
+    if (warp == 0) {
+        long long agg = 0;
+        for (int q = 0; q < nrows; ++q) agg += s_nv[q];
+        long long excl = 0;
+        if (tile == 0) {
+            if (lane == 0) {
+                atomicExch(&status[0], kInclusive | (unsigned long long)agg);
+            }
+        } else {
+            if (lane == 0) {
+                atomicExch(&status[tile],
+                           kAggregate | (unsigned long long)agg);
+            }
+            // the warp reads 32 predecessors at a time, nearest in lane 0,
+            // and stops at the nearest one that holds its inclusive count
+            for (int64_t top = tile - 1;; top -= 32) {
+                const int64_t p = top - lane;
+                unsigned long long v = p >= 0 ? 0ULL : kInclusive;
+                do {
+                    if (v == 0) {
+                        v = *reinterpret_cast<volatile unsigned long long*>(
+                            &status[p]);
+                    }
+                } while (__ballot_sync(0xFFFFFFFFu, v == 0));
+                const unsigned incl =
+                    __ballot_sync(0xFFFFFFFFu, (v & kInclusive) != 0);
+                const int last = incl ? __ffs(incl) - 1 : 31;
+                long long c = lane <= last ? (long long)(v & kCountMask) : 0;
+                for (int d = 16; d > 0; d >>= 1) {
+                    c += __shfl_xor_sync(0xFFFFFFFFu, c, d);
+                }
+                excl += c;
+                if (incl) break;
+            }
+            if (lane == 0) {
+                atomicExch(&status[tile],
+                           kInclusive | (unsigned long long)(excl + agg));
+            }
+        }
+        if (lane == 0) s_base = excl;
+    }
+    __syncthreads();
+    // this tile's entries, from their dense slots to their compacted place
+    long long base = s_base;
+    for (int q = 0; q < nrows; ++q) {
+        const int64_t soff = rows[4 * (r0 + q) + 3];
+        for (int i = threadIdx.x; i < s_nv[q]; i += kThreads) {
+            out[2 * (base + i)] = (int32_t)stage_key[soff + i];
+            out[2 * (base + i) + 1] = stage_meta[soff + i];
+        }
+        base += s_nv[q];
+    }
+}
+
+// The shared memory of a block, and the rows a warp takes (0: none), for
+// windows of up to w starts.
+void sketch_layout(int w, int* short_max, size_t* smem, int* cap_block,
+                   int* cap_warp) {
+    *cap_block = kChunk + 2 * (w - 1);
+    *cap_warp = kShort + 2 * (w - 1);
+    const size_t block = 4 * (size_t)region_words(*cap_block);
+    const size_t warps = 4 * (size_t)kWarps * region_words(*cap_warp);
+    const size_t most = 232448;  // an sm_90 block's opt-in maximum
+    *short_max = warps <= most ? kShort : 0;
+    *smem = *short_max ? (block > warps ? block : warps) : block;
 }
 
 }  // namespace
@@ -229,24 +469,38 @@ int mtc_sketch_reads(const uint8_t* codes, int64_t L, const int64_t* rids,
     return (int)cudaGetLastError();
 }
 
-int mtc_sketch_windowed(const uint8_t* ref, const int64_t* starts,
-                        const int32_t* lens, int64_t rows, int k, int we,
-                        int mb, uint32_t* out_key, int32_t* out_meta,
-                        int32_t* out_nv, void* stream) {
-    if (rows <= 0) return 0;
-    if (k < 1 || k > 31 || we < 1 || mb < 1) return (int)cudaErrorInvalidValue;
-    const size_t nq = kChunk + 2 * (size_t)(we - 1);
-    const size_t nj = kChunk + (size_t)(we - 1);
-    const size_t smem = nq * 4 + nj * 4 + nq + nq + k - 1;
+// out[0]: the most k-mer starts of a row that a warp takes (0: every row
+// takes a block); out[1]: rows per tile of warps; for windows of up to w.
+void mtc_sketch_layout(int w, int64_t* out) {
+    int short_max, cap_block, cap_warp;
+    size_t smem;
+    sketch_layout(w < 1 ? 1 : w, &short_max, &smem, &cap_block, &cap_warp);
+    out[0] = short_max;
+    out[1] = kWarps;
+}
+
+int mtc_sketch_windowed(const uint8_t* ref, const int64_t* rows,
+                        const int64_t* tiles, int64_t n_tiles, int k, int w,
+                        uint32_t* stage_key, int32_t* stage_meta, int32_t* out,
+                        int32_t* nv, unsigned long long* status,
+                        void* stream) {
+    if (n_tiles <= 0) return 0;
+    if (k < 1 || k > 31 || w < 1 || n_tiles > 0x7FFFFFFF)
+        return (int)cudaErrorInvalidValue;
+    int short_max, cap_block, cap_warp;
+    size_t smem;
+    sketch_layout(w, &short_max, &smem, &cap_block, &cap_warp);
+    if (smem > 232448) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             sketch_windowed_kernel,
             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (e != cudaSuccess) return (int)e;
     }
-    sketch_windowed_kernel<<<(unsigned)rows, kChunk, smem,
+    sketch_windowed_kernel<<<(unsigned)n_tiles, kThreads, smem,
                              (cudaStream_t)stream>>>(
-        ref, starts, lens, k, we, mb, out_key, out_meta, out_nv);
+        ref, rows, tiles, k, w, short_max, cap_block, cap_warp, stage_key,
+        stage_meta, out, nv, status);
     return (int)cudaGetLastError();
 }
 

@@ -31,8 +31,8 @@ _launches_lock = threading.Lock()
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGS = {
     "mtc_sketch_reads": [_P, _I64, _P, _I64, _INT, _P, _P],
-    "mtc_sketch_windowed": [_P, _P, _P, _I64, _INT, _INT, _INT, _P, _P, _P,
-                            _P],
+    "mtc_sketch_windowed": [_P, _P, _P, _I64, _INT, _INT, _P, _P, _P, _P,
+                            _P, _P],
     "mtc_consensus_vote": [_P, _I64, _P, _P, _I64, _I64, _INT, _P, _P, _P,
                            _P],
     "mtc_rans_encode": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
@@ -76,6 +76,9 @@ def lib():
             kl.mtc_cuda_error_string.argtypes = [ctypes.c_int]
             kl.mtc_rans_layout.restype = None
             kl.mtc_rans_layout.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+            kl.mtc_sketch_layout.restype = None
+            kl.mtc_sketch_layout.argtypes = [_INT,
+                                             ctypes.POINTER(ctypes.c_int64)]
             _lib = kl
     return _lib
 
@@ -94,6 +97,15 @@ def launch(name: str, *args) -> None:
                            f"({lib().mtc_cuda_error_string(err).decode()})")
     with _launches_lock:
         launches[name] += 1
+
+
+def sketch_layout(w: int) -> tuple[int, int]:
+    """The contig sketch's block layout for windows of up to ``w`` starts:
+    (the most k-mer starts of a row that a warp takes, 0 for none; rows per
+    block of warps)."""
+    out = (ctypes.c_int64 * 2)()
+    lib().mtc_sketch_layout(w, out)
+    return int(out[0]), int(out[1])
 
 
 def require_cuda(t: torch.Tensor) -> None:

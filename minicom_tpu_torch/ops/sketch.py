@@ -13,6 +13,7 @@ int64 product wraps, but its low 32 bits are right.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -132,6 +133,76 @@ def _sketch_windowed_plain(ref_flat, starts, lengths, Lmax, k, we, mb):
             nv.to(torch.int32))
 
 
+
+
+_PLAIN_ROWS = 2048  # rows per call of the plain version in a flat sketch
+
+
+def _sketch_windowed_flat_plain(ref_flat, starts, lengths, mb, k, w):
+    """The plain version of ``sketch_windowed_flat``: the dense plain
+    version on each run of rows with one slot count (at most _PLAIN_ROWS
+    rows at a time), its kept entries compacted in row order."""
+    dev = ref_flat.device
+    keys, metas, nvs = [], [], []
+    cuts = np.flatnonzero(mb[1:] != mb[:-1]) + 1
+    for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, len(mb)]):
+        for i in range(int(lo), int(hi), _PLAIN_ROWS):
+            j = min(i + _PLAIN_ROWS, int(hi))
+            lmax = max(int(lengths[i:j].max()), k)
+            key, meta, nv = (x.cpu().numpy() for x in _sketch_windowed_plain(
+                ref_flat, torch.from_numpy(starts[i:j]).to(dev),
+                torch.from_numpy(lengths[i:j].astype(np.int32)).to(dev),
+                lmax, k, min(w, lmax - k + 1), int(mb[i])))
+            v = np.arange(mb[i])[None, :] < nv[:, None]
+            keys.append(key[v])
+            metas.append(meta[v])
+            nvs.append(nv)
+    return (np.concatenate(keys), np.concatenate(metas),
+            np.concatenate(nvs).astype(np.int32))
+
+
+def _check_rows(starts, lengths, n_ref, lmax=None):
+    """IndexError unless every row lies inside the contig stream (and is at
+    most ``lmax`` long): host arrays, so no device sync."""
+    if len(starts) and (min(starts.min(), lengths.min()) < 0
+                        or (starts + lengths).max() > n_ref
+                        or (lmax is not None and lengths.max() > lmax)):
+        raise IndexError("row outside the contig stream or the rung")
+
+
+def _tiles(S: np.ndarray, short_max: int, per_tile: int) -> np.ndarray:
+    """The first row of each block of one launch, then the row count: up to
+    ``per_tile`` consecutive rows of at most ``short_max`` k-mer starts
+    share a block (a warp each); any other row has a block of its own."""
+    idx = np.arange(len(S))
+    short = S <= short_max if short_max > 0 else np.zeros(len(S), bool)
+    head = short & ~np.r_[False, short[:-1]]
+    run0 = np.maximum.accumulate(np.where(head, idx, 0)) if len(S) else idx
+    new = ~short | ((idx - run0) % per_tile == 0)
+    return np.r_[np.flatnonzero(new), len(S)].astype(np.int64)
+
+
+def _plan(starts, lengths, mb, soff, k, w):
+    """Host side of one launch: the [R, 4] rows (start, len, mb, slot
+    offset) then the tiles, as one int64 array; the tile count and the
+    window the kernel sizes its shared memory for."""
+    w_eff = int(max(1, min(w, lengths.max() - k + 1)))
+    short_max, per_tile = cuda.sketch_layout(w_eff)
+    tiles = _tiles(lengths.astype(np.int64) - k + 1, short_max, per_tile)
+    desc = np.concatenate([np.stack([starts, lengths, mb, soff], 1).ravel(),
+                           tiles]).astype(np.int64)
+    return desc, len(tiles) - 1, w_eff
+
+
+def _launch(ref_flat, desc, n_rows, n_tiles, k, w, stage, out=None,
+            status=None):
+    """One contig-sketch launch: ``stage`` = (key, meta, nv) tensors, and
+    for the compacted layout ``out`` ([cap, 2] int32) and ``status`` (zeroed
+    int64, one word per tile and the ticket)."""
+    cuda.launch("mtc_sketch_windowed", ref_flat, desc, desc[4 * n_rows:],
+                n_tiles, k, w, stage[0], stage[1], out, stage[2], status)
+
+
 def sketch_windowed_compact32(ref_flat: torch.Tensor, starts: torch.Tensor,
                               lengths: torch.Tensor, Lmax: int, k: int,
                               we: int, mb: int):
@@ -144,7 +215,9 @@ def sketch_windowed_compact32(ref_flat: torch.Tensor, starts: torch.Tensor,
     key32 [rows, mb] uint32 (the rank, mix32 of the canonical k-mer),
     meta [rows, mb] int32 (end_pos << 1 | strand) and nv [rows] int32
     (min(emissions, mb)). Slots at or beyond nv are undefined. Replaces
-    ``gather_contig_rows`` + ``sketch_windowed_pallas_compact32``."""
+    ``gather_contig_rows`` + ``sketch_windowed_pallas_compact32``. On the
+    card the rows' (start, length) come to the host for the checks and the
+    plan (one copy each), and one launch writes the dense layout."""
     cuda.check(ref_flat, torch.uint8, 1, "ref_flat")
     cuda.check(starts, torch.int64, 1, "starts")
     cuda.check(lengths, torch.int32, 1, "lengths")
@@ -155,21 +228,69 @@ def sketch_windowed_compact32(ref_flat: torch.Tensor, starts: torch.Tensor,
     if not (1 <= k <= 31 and k <= Lmax and we >= 1 and mb >= 1):
         raise ValueError(f"bad sketch shape k={k} Lmax={Lmax} we={we} "
                          f"mb={mb}")
-    rows = starts.shape[0]
-    if rows:
-        lo = torch.minimum(starts.min(), lengths.min().to(torch.int64))
-        if (lo.item() < 0 or lengths.max().item() > Lmax
-                or (starts + lengths).max().item() > len(ref_flat)):
-            raise IndexError("row outside the contig stream or the rung")
+    st, ln = starts.cpu().numpy(), lengths.cpu().numpy()
+    _check_rows(st, ln, len(ref_flat), Lmax)
     if ref_flat.device.type == "cpu":
         return _sketch_windowed_plain(ref_flat, starts, lengths, Lmax, k, we,
                                       mb)
     cuda.require_cuda(ref_flat)
     dev = ref_flat.device
-    key = torch.empty((rows, mb), dtype=torch.uint32, device=dev)
-    meta = torch.empty((rows, mb), dtype=torch.int32, device=dev)
-    nv = torch.empty(rows, dtype=torch.int32, device=dev)
+    rows = len(st)
+    stage = (torch.empty((rows, mb), dtype=torch.uint32, device=dev),
+             torch.empty((rows, mb), dtype=torch.int32, device=dev),
+             torch.empty(rows, dtype=torch.int32, device=dev))
     if rows:
-        cuda.launch("mtc_sketch_windowed", ref_flat, starts, lengths, rows,
-                    k, min(we, Lmax - k + 1), mb, key, meta, nv)
-    return key, meta, nv
+        desc, n_tiles, w_eff = _plan(st, ln, np.full(rows, mb),
+                                     np.arange(rows) * mb, k,
+                                     min(we, Lmax - k + 1))
+        _launch(ref_flat, torch.from_numpy(desc).to(dev), rows, n_tiles, k,
+                w_eff, stage)
+    return stage
+
+
+def sketch_windowed_flat(ref_flat: torch.Tensor, starts: np.ndarray,
+                         lengths: np.ndarray, mb: np.ndarray, k: int, w: int):
+    """The contig sketch of ``sketch_windowed_compact32`` over rows of any
+    lengths, each row r with its own slot count ``mb[r]``, the windows of
+    row r min(w, its k-mer starts) wide; the kept entries compacted in row
+    order.
+
+    starts, lengths, mb: host arrays, one entry per row (checked here, on
+    the host). Returns host arrays: key32 [n] uint32, meta [n] int32
+    (end_pos << 1 | strand), nv [rows] int32 (min(emissions, mb[r])), where
+    row r's nv[r] entries follow those of the rows before it, in position
+    order. On the card: one upload of the rows, one launch that sketches
+    every row and compacts on the card, one download of nv and one of the
+    entries."""
+    cuda.check(ref_flat, torch.uint8, 1, "ref_flat")
+    starts = np.asarray(starts, np.int64)
+    lengths = np.asarray(lengths, np.int64)
+    mb = np.asarray(mb, np.int64)
+    if not starts.shape == lengths.shape == mb.shape or starts.ndim != 1:
+        raise ValueError("starts, lengths and mb differ in shape")
+    if not (1 <= k <= 31 and w >= 1 and (mb >= 1).all()):
+        raise ValueError(f"bad sketch shape k={k} w={w}")
+    _check_rows(starts, lengths, len(ref_flat))
+    rows = len(starts)
+    if rows == 0:
+        return (np.zeros(0, np.uint32), np.zeros(0, np.int32),
+                np.zeros(0, np.int32))
+    if ref_flat.device.type == "cpu":
+        return _sketch_windowed_flat_plain(ref_flat, starts, lengths, mb, k,
+                                           w)
+    cuda.require_cuda(ref_flat)
+    dev = ref_flat.device
+    soff = np.r_[0, np.cumsum(mb)[:-1]]
+    cap = int(mb.sum())
+    desc, n_tiles, w_eff = _plan(starts, lengths, mb, soff, k, w)
+    stage = (torch.empty(cap, dtype=torch.uint32, device=dev),
+             torch.empty(cap, dtype=torch.int32, device=dev),
+             torch.empty(rows, dtype=torch.int32, device=dev))
+    out = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+    status = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
+    _launch(ref_flat, torch.from_numpy(desc).to(dev), rows, n_tiles, k,
+            w_eff, stage, out, status)
+    nv = stage[2].cpu().numpy()
+    ent = out[:int(nv.sum())].cpu().numpy()
+    return (np.ascontiguousarray(ent[:, 0]).view(np.uint32),
+            np.ascontiguousarray(ent[:, 1]), nv)

@@ -27,7 +27,7 @@ import torch
 
 from minicom_tpu_torch import native
 from minicom_tpu_torch.config import ResolvedConfig
-from minicom_tpu_torch.ops.sketch import sketch_windowed_compact32
+from minicom_tpu_torch.ops.sketch import sketch_windowed_flat
 from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.pipeline.cluster import (ClusterSet,
                                                 consensus_from_members,
@@ -85,8 +85,9 @@ def sketch_contigs(cs: ClusterSet, k: int, w: int, rank_cap: int,
                    device: torch.device, stats: dict | None = None):
     """Windowed minimizers of every contig, length-bucketed chunks.
 
-    The flat contig stream goes to the device once; each chunk sends only
-    (start, length) per contig and the kernel reads the bases in place.
+    The flat contig stream goes to the device once, then (start, length,
+    mb) of this rank's rows; one launch sketches them all, the kernel
+    reading the bases in place, and the kept entries come back compacted.
 
     Returns flat arrays (key32, contig_id, pos, strand, rank) over all valid
     entries, up to mb per contig in position order; ``rank`` is the entry's
@@ -110,34 +111,25 @@ def sketch_contigs(cs: ClusterSet, k: int, w: int, rank_cap: int,
             j += 1
         plan.append((i, j, Lmax, tile))
         i = j
-    # each rank sketches a contiguous chunk range, weighted by padded size
+    # each rank sketches a contiguous chunk range, weighted by padded size,
+    # in one launch: the range's rows in plan order, each with its rung's mb
     b0, b1 = dist.my_partition(np.array([p[3] * p[2] for p in plan]))
-
-    ref_dev = to_device(cs.ref_flat, device)
-    keys, cids, poss, dirs, ranks = [[np.zeros(0, d)] for d in
-                                     (np.uint32, np.int64, np.int32,
-                                      np.int8, np.int32)]
-    saturated = 0
-    for i, j, Lmax, _ in plan[b0:b1]:
-        batch = order[i:j]
-        mb = _batch_m(Lmax, k, w, rank_cap)
-        key, meta, nv = (x.cpu().numpy() for x in sketch_windowed_compact32(
-            ref_dev, to_device(cs.ref_ptr[batch], device),
-            to_device(lens[batch].astype(np.int32), device),
-            Lmax, k, min(w, Lmax - k + 1), mb))
-        # rows whose slot budget saturated (true emission count unknown past
-        # mb) — the drop signal for the rank cap
-        saturated += int((nv >= mb).sum())
-        v = np.arange(mb, dtype=np.int32)[None, :] < nv[:, None]
-        keys.append(key[v])
-        cids.append(np.broadcast_to(batch[:, None], v.shape)[v])
-        poss.append((meta[v] >> 1).astype(np.int32))
-        dirs.append((meta[v] & 1).astype(np.int8))
-        ranks.append(np.broadcast_to(np.arange(mb, dtype=np.int32)[None, :],
-                                     v.shape)[v])
+    mine = plan[b0:b1]
+    rows = order[mine[0][0]:mine[-1][1]] if mine else order[:0]
+    mb = np.repeat([_batch_m(Lmax, k, w, rank_cap) for _, _, Lmax, _ in mine],
+                   [j - i for i, j, _, _ in mine]).astype(np.int64)
+    key, meta, nv = sketch_windowed_flat(
+        to_device(cs.ref_flat, device), cs.ref_ptr[rows], lens[rows], mb, k,
+        w)
+    # rows whose slot budget saturated (true emission count unknown past
+    # mb) — the drop signal for the rank cap
+    saturated = int((nv >= mb).sum())
+    first = np.cumsum(nv) - nv
+    local = [key, np.repeat(rows, nv), (meta >> 1).astype(np.int32),
+             (meta & 1).astype(np.int8),
+             (np.arange(len(key)) - np.repeat(first, nv)).astype(np.int32)]
     *flat, sat = dist.allgather_ragged_many(
-        [np.concatenate(x) for x in (keys, cids, poss, dirs, ranks)]
-        + [np.array([saturated], np.int64)])
+        local + [np.array([saturated], np.int64)])
     if stats is not None:   # summed over the ranks: the single-process count
         stats["merge_rank_saturated"] = (
             stats.get("merge_rank_saturated", 0) + int(sat.sum()))

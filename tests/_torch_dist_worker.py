@@ -16,6 +16,10 @@ hold ``{rank}``. Imports no jax. Jobs:
   then decompress "decode_from" (default "out") when "decode" is set.
   "write_all" sets MTC_WRITE_ALL_RANKS. Reports the kernel launches of the
   compress.
+* {"op": "sketch", "cs": path, "out": path}: the merge stage's
+  ``sketch_contigs`` (k = 31, w = 19, rank cap 128, on the CPU) of the
+  contigs of ``sketch_input``; saves the gathered arrays and then this
+  rank's own share of them to ``out`` (an .npz).
 """
 
 import datetime
@@ -59,6 +63,49 @@ def _collectives(rank, world, out):
     np.savez(out, *got, rows=store.rows(inp["rows"], chunk=ROWS_CHUNK),
              rows_all=store.rows_all(inp["rows_all"]))
     return {"dtypes": [str(g.dtype) for g in got]}
+
+
+SKETCH_ARGS = (31, 19, 128)   # k, w, rank cap
+
+
+def sketch_input(path):
+    """Contigs of every rung of the merge stage's sketch plan (the 128
+    rung in two chunks), saved to ``path``; returns the ClusterSet."""
+    rng = np.random.default_rng(9)
+    lens = rng.choice([100, 300, 1500, 6000], 4000, p=[.6, .3, .08, .02])
+    ptr = np.r_[0, np.cumsum(lens)]
+    ref = rng.integers(0, 4, int(ptr[-1]), dtype=np.uint8)
+    np.savez(path, ref=ref, ptr=ptr)
+    return _contigs(ref, ptr)
+
+
+def _contigs(ref, ptr):
+    from minicom_tpu_torch.pipeline.cluster import ClusterSet
+    n = len(ptr) - 1
+    return ClusterSet(100, np.zeros(0, np.int64), np.zeros(0, np.int32),
+                      np.zeros(0, np.int8), np.zeros(n + 1, np.int64), ref,
+                      ptr)
+
+
+def _sketch(rank, job):
+    import torch
+    from minicom_tpu_torch.parallel import distributed as dist
+    from minicom_tpu_torch.pipeline import merge
+    with np.load(job["cs"]) as z:
+        cs = _contigs(z["ref"], z["ptr"])
+    gather, mine = dist.allgather_ragged_many, []
+
+    def keep(arrays):
+        mine.extend(arrays[:5])
+        return gather(arrays)
+
+    dist.allgather_ragged_many = keep
+    try:
+        out = merge.sketch_contigs(cs, *SKETCH_ARGS, torch.device("cpu"))
+    finally:
+        dist.allgather_ragged_many = gather
+    np.savez(job["out"].format(rank=rank), *out, *mine)
+    return {"entries": len(mine[0])}
 
 
 def _compress(rank, job):
@@ -131,6 +178,8 @@ def main():
         for job in jobs:
             if job["op"] == "collectives":
                 res = _collectives(rank, world, job["out"].format(rank=rank))
+            elif job["op"] == "sketch":
+                res = _sketch(rank, job)
             else:
                 res = _compress(rank, job)
             print("JOB " + json.dumps(res), flush=True)

@@ -23,7 +23,8 @@ from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
                                         rans_decode_blocks,
                                         rans_encode_blocks)
 from minicom_tpu_torch.ops.sketch import (sketch_reads_gather,
-                                          sketch_windowed_compact32)
+                                          sketch_windowed_compact32,
+                                          sketch_windowed_flat)
 from minicom_tpu_torch.ops.verify import popcount_verify
 
 pytestmark = pytest.mark.cuda
@@ -74,6 +75,54 @@ def test_sketch_windowed_kernel_matches_plain(dev, Lmax, k, w):
     v = np.arange(mb)[None, :] < wn[:, None]
     np.testing.assert_array_equal(gk[v], wk[v])
     np.testing.assert_array_equal(gm[v], wm[v])
+
+
+@pytest.mark.parametrize("k,w", [(31, 19), (17, 300), (4, 3), (21, 40)])
+def test_sketch_windowed_flat_kernel_matches_plain(dev, k, w):
+    """A mixed-rung batched call in plan order (rows sorted by length, each
+    rung's mb), with empty rows, rows shorter than k, saturated rows,
+    palindromes and a long repeat: one launch, compacted entries equal to
+    the batched plain version."""
+    rng = np.random.default_rng(k + w)
+    ref = rng.integers(0, 4, 300_000, dtype=np.uint8)
+    ref[1000:1400] = np.tile([0, 3], 200)
+    ref[5000:9000] = 2
+    lens = np.sort(np.r_[rng.integers(0, 129, 3000),
+                         rng.integers(129, 513, 700),
+                         rng.integers(513, 2049, 120),
+                         rng.integers(2049, 8193, 20), [0, 1, k - 1, 4000]])
+    starts = rng.integers(0, len(ref) - 8192, len(lens))
+    starts[-1] = 5000
+    starts[:3] = 1000
+    mb = np.select([lens <= 128, lens <= 512], [24, 64], 128)
+    t = torch.from_numpy(ref)
+    want = sketch_windowed_flat(t, starts, lens, mb, k, w)
+    n0 = cuda.launches["mtc_sketch_windowed"]
+    got = sketch_windowed_flat(t.to(dev), starts, lens, mb, k, w)
+    assert cuda.launches["mtc_sketch_windowed"] == n0 + 1
+    assert (got[2] >= mb).any()
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)
+
+
+def test_sketch_contigs_is_one_launch_per_call(dev):
+    """The merge stage's sketch of contigs of every rung: one launch for
+    all its chunks, arrays equal to the CPU run's."""
+    from minicom_tpu_torch.pipeline.cluster import ClusterSet
+    from minicom_tpu_torch.pipeline.merge import sketch_contigs
+    rng = np.random.default_rng(9)
+    lens = rng.choice([100, 300, 1500, 6000], 5000, p=[.6, .3, .08, .02])
+    ptr = np.r_[0, np.cumsum(lens)]
+    cs = ClusterSet(100, np.zeros(0, np.int64), np.zeros(0, np.int32),
+                    np.zeros(0, np.int8), np.zeros(len(lens) + 1, np.int64),
+                    rng.integers(0, 4, int(ptr[-1]), dtype=np.uint8), ptr)
+    want = sketch_contigs(cs, 31, 19, 128, torch.device("cpu"))
+    n0 = cuda.launches["mtc_sketch_windowed"]
+    got = sketch_contigs(cs, 31, 19, 128, dev)
+    assert cuda.launches["mtc_sketch_windowed"] == n0 + 1
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype
+        np.testing.assert_array_equal(g, x)
 
 
 @pytest.mark.parametrize("want_ref,want_diffs",

@@ -21,6 +21,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from minicom_tpu import CompressorConfig as JConfig
 from minicom_tpu import compressor as jcomp
@@ -28,11 +29,15 @@ from minicom_tpu.parallel import distributed as jdist
 from minicom_tpu_torch import CompressorConfig
 from minicom_tpu_torch import compressor as tcomp
 from minicom_tpu_torch.parallel import distributed as dist
+from minicom_tpu_torch.pipeline import merge as tmerge
 from tests import _torch_dist_worker as worker
 from tests._torch_dist_worker import job_results as _jobs
 from tests._torch_dist_worker import run_group as _run_group
 from tests.conftest import genome_reads, write_fastq
 from tests.test_torch_rans import jax_native  # noqa: F401 (autouse)
+
+
+CPU = torch.device("cpu")
 
 
 def _read(path):
@@ -75,7 +80,15 @@ def data(tmp_path_factory):
         gold[mode] = dict(src=src, fq2=m2, jax=_read(j), port=_read(t),
                           dec=_read(t + ".dec"),
                           dec2=_read(t + ".dec2") if pe else None)
-    return dict(tmp=tmp, gold=gold)
+    sk = os.path.join(tmp, "sketch_in.npz")
+    gold["sketch"] = tmerge.sketch_contigs(worker.sketch_input(sk),
+                                           *worker.SKETCH_ARGS, CPU)
+    return dict(tmp=tmp, gold=gold, sketch=sk)
+
+
+def _sketch_job(data, world):
+    return dict(op="sketch", cs=data["sketch"],
+                out=os.path.join(data["tmp"], f"sk{world}_{{rank}}.npz"))
 
 
 def _mode_job(data, world, mode, **kw):
@@ -95,7 +108,8 @@ def group2(data):
     that resumes from the checkpoints."""
     tmp = data["tmp"]
     ck = os.path.join(tmp, "ck")
-    jobs = ([dict(op="collectives", out=os.path.join(tmp, "c2_{rank}.npz"))]
+    jobs = ([dict(op="collectives", out=os.path.join(tmp, "c2_{rank}.npz")),
+             _sketch_job(data, 2)]
             + [_mode_job(data, 2, m) for m in MODES]
             + [_mode_job(data, 2, "auto", out=os.path.join(tmp, "r0_{rank}.mtc"),
                          decode=os.path.join(tmp, "r0_{rank}.dec"),
@@ -117,7 +131,7 @@ def group3(data):
     tmp = data["tmp"]
     return _run_group(tmp, "g3", 3, [
         dict(op="collectives", out=os.path.join(tmp, "c3_{rank}.npz")),
-        _mode_job(data, 3, "auto")])
+        _sketch_job(data, 3), _mode_job(data, 3, "auto")])
 
 
 @pytest.fixture(params=[2, 3])
@@ -151,6 +165,26 @@ def test_sharded_store_rows_equal_plain_indexing(data, group, op):
         with np.load(os.path.join(data["tmp"], f"c{world}_{r}.npz")) as z:
             got = z[op]
         np.testing.assert_array_equal(got, inp["codes"][inp[op]])
+
+
+def test_sketch_contigs_ranks_split_the_plan(data, group):
+    """Each rank sketches its own range of the plan's chunks (in one
+    launch on the card): the ranks' shares, in rank order, are the
+    single-process arrays, which every rank gets back whole."""
+    world = group
+    want = data["gold"]["sketch"]
+    shares = []
+    for r in range(world):
+        with np.load(os.path.join(data["tmp"], f"sk{world}_{r}.npz")) as z:
+            got = [z[f"arr_{i}"] for i in range(10)]
+        for g, x in zip(got[:5], want):
+            assert g.dtype == x.dtype
+            np.testing.assert_array_equal(g, x)
+        shares.append(got[5:])
+    assert sum(len(s[0]) > 0 for s in shares) >= 2   # the work is split
+    for i, x in enumerate(want):
+        np.testing.assert_array_equal(
+            np.concatenate([s[i] for s in shares]), x)
 
 
 WEIGHTS = [np.array([5, 1, 1, 1, 8, 1, 1, 1, 1, 4]), np.zeros(0),

@@ -109,6 +109,24 @@ def test_merge_matches_reference(stages, revote):
         assert counters[key] == want_counters[key], key
 
 
+@pytest.mark.parametrize("which", ["cset", "merged"])
+def test_sketch_contigs_matches_reference(stages, which):
+    """The merge stage's contig sketch, array for array and dtype for
+    dtype, on the clusters before and after merging; and the same
+    saturated-row count."""
+    rcfg = stages["rcfg"]
+    cset = stages[which]
+    args = (rcfg.k, rcfg.contig_window, rcfg.merge_rank_cap)
+    got_stats, want_stats = {}, {}
+    got = tmerge.sketch_contigs(from_reference(cset), *args, CPU, got_stats)
+    want = jmerge.sketch_contigs(cset, *args, stats=want_stats)
+    assert len(got[0]) > 0
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype
+        np.testing.assert_array_equal(g, x)
+    assert got_stats == want_stats
+
+
 def test_merge_incremental_equals_full(stages):
     cfg = from_reference(stages["rcfg"])
     cset = from_reference(stages["cset"])
