@@ -8,7 +8,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      limit (nvidia-smi) and builds the CUDA kernels and the host library.
   1. kernels: each CUDA kernel against its plain PyTorch version on the same
      CUDA tensors (and against its host C++ twin or numpy oracle), exact, at
-     the main path's shapes; kernel times are medians of CUDA-event timings.
+     the main path's shapes; kernel times are medians of CUDA-event timings
+     (the contig sketch's from CUDA graphs of 20 launches: its launch from
+     Python outlasts it). The contig sketch runs 2048 rows of each rung
+     (128 to 8192), each rung alone in the dense layout and then all four
+     as one batched call of the merge stage's entry point (one launch,
+     entries compacted on the card); its bound counts the k-mer starts the
+     rows need (a row that fills its slots stops a window past its last
+     kept entry).
      The rANS scans take their blocks from the streams of phase 2's archive:
      a full order-0 block (T = 8192) and a full trans2 block (T = 32768) of
      the diff text, and a dzt literal block (A = 4, k = 4) of the consensus,
@@ -21,6 +28,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
   2. end to end: compress(device="cuda") + decompress of a 5,000,000-read x
      100 bp dataset (bench.py make_dataset, default profile, seed 7), exact
      roundtrip; every kernel of the path must have launched during compress.
+     The contig sketch's work is counted per ``sketch_contigs`` call (its
+     contigs, k-mer starts, launches), with its device seconds, the bound of
+     that work and the merge_sketch sub-stage; more than one contig-sketch
+     launch per call fails the phase.
      Then the same with codec="device" (the on-device entropy coders): exact
      roundtrip, rANS encode launched during compress and rANS decode during
      decompress: at most one decode launch per device-coded stream (two for
@@ -94,7 +105,7 @@ from minicom_tpu_torch.ops import consensus, cuda, rans, sketch, verify
 from minicom_tpu_torch.ops.pack import (pack_2bit_words, popcount_u32,
                                         revcomp_codes)
 from minicom_tpu_torch.pipeline import classify, cluster, merge
-from minicom_tpu_torch.pipeline.merge import (_LMAX_FLOOR, _batch_m,
+from minicom_tpu_torch.pipeline.merge import (_batch_m, _lmax_bucket,
                                               _rows_tile, merge_contigs)
 from minicom_tpu_torch.stats import StageStats
 
@@ -706,14 +717,9 @@ class _LaunchTimer:
 
 def _mb_of(lens, k, w, cap):
     """Each contig's slot count: its rung's ``_batch_m`` (merge's plan)."""
-    n = np.maximum(lens, k + 1)
-    lmax = np.full(len(lens), _LMAX_FLOOR, np.int64)
-    while (lmax < n).any():
-        lmax = np.where(lmax < n, lmax * 4, lmax)
-    s = np.maximum(lmax - k + 1, 1)
-    m = np.minimum(cap, np.maximum(8, (2.2 * s / (w + 1)).astype(np.int64)
-                                   + 8))
-    return np.minimum(cap, (m + 7) & ~7)
+    u, inv = np.unique(np.maximum(lens, k + 1), return_inverse=True)
+    return np.array([_batch_m(_lmax_bucket(int(n)), k, w, cap)
+                     for n in u], np.int64)[inv]
 
 
 def needed_starts(lens, k, w, mb, nv, last_end):

@@ -133,8 +133,6 @@ def _sketch_windowed_plain(ref_flat, starts, lengths, Lmax, k, we, mb):
             nv.to(torch.int32))
 
 
-
-
 _PLAIN_ROWS = 2048  # rows per call of the plain version in a flat sketch
 
 
