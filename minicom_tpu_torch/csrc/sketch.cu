@@ -447,6 +447,7 @@ void sketch_layout(int w, int* short_max, size_t* smem, int* cap_block,
     const size_t block = 4 * (size_t)region_words(*cap_block);
     const size_t warps = 4 * (size_t)kWarps * region_words(*cap_warp);
     const size_t most = 232448;  // an sm_90 block's opt-in maximum
+    // four warp regions fit up to w = 1620, one block region up to 6481
     *short_max = warps <= most ? kShort : 0;
     *smem = *short_max ? (block > warps ? block : warps) : block;
 }

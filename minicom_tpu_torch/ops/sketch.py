@@ -259,7 +259,8 @@ def sketch_windowed_flat(ref_flat: torch.Tensor, starts: np.ndarray,
     row r's nv[r] entries follow those of the rows before it, in position
     order. On the card: one upload of the rows, one launch that sketches
     every row and compacts on the card, one download of nv and one of the
-    entries."""
+    entries; a window wider than 6,481 starts on rows that long does not
+    fit a block's shared memory, and the launch raises."""
     cuda.check(ref_flat, torch.uint8, 1, "ref_flat")
     starts = np.asarray(starts, np.int64)
     lengths = np.asarray(lengths, np.int64)
