@@ -247,7 +247,8 @@ def phase1_sketch_reads(dev, report):
         _equal(f"sketch_reads k={k} vs host", got.cpu().numpy(),
                np.stack([hi, lo, (pos.astype(np.uint32) << 1) | z]))
     out = torch.empty((3, n), dtype=torch.uint32, device=dev)
-    ms = _ms(lambda: cuda.launch("mtc_sketch_reads", c, L, r, n, 31, out), 20)
+    ms = _graph_ms(lambda: cuda.launch("mtc_sketch_reads", c, L, r, n, 31,
+                                       out))
     plain_ms = _ms(lambda: sketch._sketch_reads_plain(c, r, 31), 5)
     print(f"[1] sketch_reads_gather {n} x {L} k=31: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms; equal to plain and host for k in "
@@ -422,8 +423,8 @@ def phase1_consensus(dev, fastq_path, report):
     scratch = (torch.empty(span * 4, dtype=torch.int32, device=dev),
                torch.empty(span, dtype=torch.uint8, device=dev),
                torch.empty(M, dtype=torch.int32, device=dev))
-    ms = _ms(lambda: cuda.launch("mtc_consensus_vote", codes_dev, L, rd, col,
-                                 M, span, 1, *scratch), 20)
+    ms = _graph_ms(lambda: cuda.launch("mtc_consensus_vote", codes_dev, L, rd,
+                                       col, M, span, 1, *scratch))
     plain_ms = _ms(lambda: consensus._consensus_plain(codes_dev, rd, col,
                                                       span, True), 5)
     print(f"[1] consensus_vote {M} members, span {span}: kernel {ms:.3f} ms,"
@@ -451,8 +452,8 @@ def phase1_verify(dev, report):
     _equal("verify vs numpy", got.cpu(),
            popcount_u32(a ^ b).sum(axis=1).astype(np.int32))
     out = torch.empty(N, dtype=torch.int32, device=dev)
-    ms = _ms(lambda: cuda.launch("mtc_popcount_verify", da, db, N, W, out),
-             20)
+    ms = _graph_ms(lambda: cuda.launch("mtc_popcount_verify", da, db, N, W,
+                                       out))
     plain_ms = _ms(lambda: verify._verify_plain(da, db), 5)
     print(f"[1] popcount_verify {N} x {W} words: kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms; equal to plain and numpy")
@@ -795,6 +796,108 @@ class _SketchCalls:
         return tot
 
 
+class _ConsensusCalls:
+    """Wraps ``consensus_from_members`` (the entry of the cluster rounds and
+    of merge's re-votes) for a span: per call its members, bases, columns
+    and segments, the consensus launches it made, its host wall seconds and
+    the bytes its function must move (the member rows, (rd, col) as int64,
+    the ref and diffs asked for)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._fn = cluster.consensus_from_members
+
+        def counted(readlen, seg_id, offsets, rids, dirs, n_segments,
+                    codes_dev, want_ref=True, want_diffs=True):
+            n0 = cuda.launches["mtc_consensus_vote"]
+            t0 = time.perf_counter()
+            out = self._fn(readlen, seg_id, offsets, rids, dirs, n_segments,
+                           codes_dev, want_ref, want_diffs)
+            wall = time.perf_counter() - t0
+            M, span = len(seg_id), int(out[1][-1])
+            self.calls.append(dict(
+                members=M, bases=M * readlen, columns=span,
+                segments=int(np.count_nonzero(np.diff(out[1]))),
+                launches=cuda.launches["mtc_consensus_vote"] - n0,
+                wall_s=wall, bytes=M * (readlen + 16) + span * want_ref
+                + 4 * M * want_diffs))
+            return out
+
+        cluster.consensus_from_members = merge.consensus_from_members = counted
+        return self
+
+    def __exit__(self, *exc):
+        cluster.consensus_from_members = merge.consensus_from_members = \
+            self._fn
+
+    def report(self, tag, device_s):
+        """Prints the calls and returns their totals; fails where a call
+        made more than one consensus launch, or one with members none."""
+        c = self.calls
+        tot = {key: sum(x[key] for x in c)
+               for key in ("members", "bases", "columns", "segments",
+                           "launches", "wall_s", "bytes")}
+        b = _bound(tot["bytes"], tot["bases"] * OPS["vote_base"]
+                   + tot["columns"] * OPS["vote_column"])
+        tot.update(calls=len(c), device_s=device_s, bound_ms=b["bound_ms"],
+                   bound_by=b["bound_by"], bytes_bound_ms=b["bytes_bound_ms"],
+                   ops_bound_ms=b["ops_bound_ms"],
+                   share_of_bound=b["bound_ms"] / 1e3 / device_s
+                   if device_s else None)
+        print(f"[{tag}] consensus per consensus_from_members call (members, "
+              "bases, columns, segments, launches, host wall s): "
+              + json.dumps([[x["members"], x["bases"], x["columns"],
+                             x["segments"], x["launches"],
+                             round(x["wall_s"], 4)] for x in c]))
+        print(f"[{tag}] consensus totals: " + json.dumps(tot))
+        bad = [i for i, x in enumerate(c)
+               if x["launches"] > 1 or (x["members"] and not x["launches"])]
+        if bad:
+            raise AssertionError(f"consensus calls {bad} did not make one "
+                                 "launch each")
+        return tot
+
+
+class _ReadSketchCalls:
+    """Wraps the cluster rounds' ``sketch_reads_gather`` for a span: per call
+    the reads sketched, k and the launches; the bytes and operations of the
+    work (every k-mer start of every read ranked, ``OPS["kmer_min"]``)."""
+
+    def __enter__(self):
+        self.calls = []
+        self._fn = cluster.sketch_reads_gather
+
+        def counted(codes, rids, k):
+            n0 = cuda.launches["mtc_sketch_reads"]
+            out = self._fn(codes, rids, k)
+            n, L = rids.shape[0], codes.shape[1]
+            self.calls.append(dict(
+                reads=n, k=k, starts=n * max(L - k + 1, 0),
+                bytes=n * (L + 8 + 12),
+                launches=cuda.launches["mtc_sketch_reads"] - n0))
+            return out
+
+        cluster.sketch_reads_gather = counted
+        return self
+
+    def __exit__(self, *exc):
+        cluster.sketch_reads_gather = self._fn
+
+    def report(self, tag, device_s):
+        c = self.calls
+        tot = {key: sum(x[key] for x in c)
+               for key in ("reads", "starts", "bytes", "launches")}
+        b = _bound(tot["bytes"], tot["starts"] * OPS["kmer_min"])
+        tot.update(calls=len(c), device_s=device_s, bound_ms=b["bound_ms"],
+                   bound_by=b["bound_by"],
+                   share_of_bound=b["bound_ms"] / 1e3 / device_s
+                   if device_s else None)
+        print(f"[{tag}] read minimizer per call (reads, k, launches): "
+              + json.dumps([[x["reads"], x["k"], x["launches"]] for x in c]))
+        print(f"[{tag}] read minimizer totals: " + json.dumps(tot))
+        return tot
+
+
 def _require(launched, names, where):
     missing = [k for k in names if launched.get(k, 0) < 1]
     if missing:
@@ -844,7 +947,8 @@ def phase2_end_to_end(dev, tmp):
     print(f"[2] dataset {N_READS} reads x 100 bp generated in "
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    with _LaunchTimer() as lt, _SketchCalls() as sk:
+    with _LaunchTimer() as lt, _SketchCalls() as sk, _ConsensusCalls() as cc, \
+            _ReadSketchCalls() as rs:
         t0 = time.perf_counter()
         summary = compressor.compress(fq, arc, device=dev)
         enc_s = time.perf_counter() - t0
@@ -882,6 +986,8 @@ def phase2_end_to_end(dev, tmp):
     if tot["launches"] > tot["calls"]:
         raise AssertionError(f"{tot['launches']} contig-sketch launches for "
                              f"{tot['calls']} sketch_contigs calls")
+    cc.report("2", kernel_s.get("mtc_consensus_vote", 0.0))
+    rs.report("2", kernel_s.get("mtc_sketch_reads", 0.0))
     return fq, arc, want, lt.launched, summary["archive_bytes"]
 
 
