@@ -8,9 +8,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      limit (nvidia-smi) and builds the CUDA kernels and the host library.
   1. kernels: each CUDA kernel against its plain PyTorch version on the same
      CUDA tensors (and against its host C++ twin or numpy oracle), exact, at
-     the main path's shapes; kernel times are medians of CUDA-event timings
-     (the contig sketch's from CUDA graphs of 20 launches: its launch from
-     Python outlasts it). The contig sketch runs 2048 rows of each rung
+     the main path's shapes; kernel times are from CUDA graphs of 20
+     launches (a launch from Python outlasts these kernels; medians of 10
+     replays bracketed by CUDA events), the plain versions' from events
+     around single calls. The consensus vote runs the first cluster
+     round's ejection pass of the phase-3 set as the round calls it (its
+     clusters' pointers, one launch), also against the host twin and the
+     one-cluster tensor entry. The contig sketch runs 2048 rows of each rung
      (128 to 8192), each rung alone in the dense layout and then all four
      as one batched call of the merge stage's entry point (one launch,
      entries compacted on the card); its bound counts the k-mer starts the
@@ -31,7 +35,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      The contig sketch's work is counted per ``sketch_contigs`` call (its
      contigs, k-mer starts, launches), with its device seconds, the bound of
      that work and the merge_sketch sub-stage; more than one contig-sketch
-     launch per call fails the phase.
+     launch per call fails the phase. Likewise the consensus vote per
+     ``consensus_from_members`` call (members, bases, columns, clusters,
+     launches, host wall; the device seconds and the bound of that work): a
+     call that makes other than one launch fails the phase; and the read
+     minimizer per call (reads, k, launches; device seconds and bound).
      Then the same with codec="device" (the on-device entropy coders): exact
      roundtrip, rANS encode launched during compress and rANS decode during
      decompress: at most one decode launch per device-coded stream (two for
@@ -77,7 +85,8 @@ The line before the last is a JSON object with each kernel's numbers
 (bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
 ops_bound_ms: the integer operations its function needs, see ``OPS``, over
 16.75 T/s; bound_ms: the larger of the two); the last line is {"ok": true,
-"device": {...}}. ``rans_times.py`` runs phase 1's rANS checks alone.
+"device": {...}}. ``rans_times.py``, ``sketch_times.py`` and
+``consensus_times.py`` run phase 1's checks of one kernel alone.
 """
 
 from __future__ import annotations
@@ -389,8 +398,11 @@ def phase1_sketch_windowed(dev, report):
 
 
 def phase1_consensus(dev, fastq_path, report):
-    """Times the vote on the first cluster round's ejection-pass members
-    of the phase-3 dataset."""
+    """The vote on the first cluster round's ejection-pass members of the
+    phase-3 dataset, as the round calls it (its clusters' member and column
+    pointers): one launch, equal to the plain version, the host twin and
+    the tensor entry (the same members as one cluster, in their own tiles);
+    the launch timed from CUDA graphs (a launch from Python outlasts it)."""
     codes = fastq.read_fastq_codes(fastq_path)
     cfg = CompressorConfig().resolve(codes.shape[1])
     cls = classify.classify(codes, cfg)
@@ -399,43 +411,57 @@ def phase1_consensus(dev, fastq_path, report):
 
     def record(*a):
         calls.append(a)
-        return consensus.consensus_vote(*a)
+        return consensus.consensus_vote_flat(*a)
 
-    cluster.consensus_vote = record
+    cluster.consensus_vote_flat = record
     try:
         cluster._one_round(codes_dev, cls.pool,
                            *cluster._sketch(cls.pool, codes_dev, cfg.k,
                                             codes.shape[1]),
                            cfg.diff_threshold, codes.shape[1])
     finally:
-        cluster.consensus_vote = consensus.consensus_vote
-    _, rd, col, span = calls[0][:4]
-    M, L = rd.shape[0], codes.shape[1]
-    ref, diffs = consensus.consensus_vote(codes_dev, rd, col, span)
-    pref, pdiffs = consensus._consensus_plain(codes_dev, rd, col, span, True)
-    err = max(_equal("consensus ref vs plain", ref.cpu(), pref.cpu()),
-              _equal("consensus diffs vs plain", diffs.cpu(), pdiffs.cpu()))
-    href, hdiffs = native.consensus_host(
-        cls.codes_sub, rd.cpu().numpy().astype(np.int32), col.cpu().numpy(),
-        np.array([0, M]), np.array([0, span]), span, True, True)
-    _equal("consensus ref vs host", ref.cpu(), href)
-    _equal("consensus diffs vs host", diffs.cpu(), hdiffs)
-    scratch = (torch.empty(span * 4, dtype=torch.int32, device=dev),
-               torch.empty(span, dtype=torch.uint8, device=dev),
-               torch.empty(M, dtype=torch.int32, device=dev))
-    ms = _graph_ms(lambda: cuda.launch("mtc_consensus_vote", codes_dev, L, rd,
-                                       col, M, span, 1, *scratch))
-    plain_ms = _ms(lambda: consensus._consensus_plain(codes_dev, rd, col,
+        cluster.consensus_vote_flat = consensus.consensus_vote_flat
+    _, rd, col, seg_ptr, col_ptr, span = calls[0][:6]
+    M, L = len(rd), codes.shape[1]
+    n0 = cuda.launches["mtc_consensus_vote"]
+    ref, diffs = consensus.consensus_vote_flat(codes_dev, rd, col, seg_ptr,
+                                               col_ptr, span)
+    if cuda.launches["mtc_consensus_vote"] != n0 + 1:
+        raise AssertionError("consensus_vote_flat: not one launch")
+    rd_d, col_d = (torch.from_numpy(x).to(dev) for x in (rd, col))
+    pref, pdiffs = consensus._consensus_plain(codes_dev, rd_d, col_d, span,
+                                              True)
+    err = max(_equal("consensus ref vs plain", ref, pref.cpu()),
+              _equal("consensus diffs vs plain", diffs, pdiffs.cpu()))
+    href, hdiffs = native.consensus_host(cls.codes_sub, rd, col, seg_ptr,
+                                         col_ptr, span, True, True)
+    _equal("consensus ref vs host", ref, href)
+    _equal("consensus diffs vs host", diffs, hdiffs)
+    tref, tdiffs = consensus.consensus_vote(codes_dev, rd_d, col_d, span)
+    _equal("consensus ref, one cluster", tref.cpu(), ref)
+    _equal("consensus diffs, one cluster", tdiffs.cpu(), diffs)
+    t0 = time.perf_counter()
+    plan, n_tiles, cap = consensus._upload(rd, col, seg_ptr, col_ptr, L, dev)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    outs = (torch.empty(span, dtype=torch.uint8, device=dev),
+            torch.empty(M, dtype=torch.int32, device=dev))
+    ms = _graph_ms(lambda: consensus._kernel(codes_dev, plan, M, n_tiles,
+                                             cap, *outs))
+    plain_ms = _ms(lambda: consensus._consensus_plain(codes_dev, rd_d, col_d,
                                                       span, True), 5)
-    print(f"[1] consensus_vote {M} members, span {span}: kernel {ms:.3f} ms,"
-          f" plain {plain_ms:.3f} ms; equal to plain and host")
+    print(f"[1] consensus_vote_flat {M} members in {len(seg_ptr) - 1} "
+          f"clusters, span {span}, {n_tiles} tiles (widest {cap} columns): "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, plan and upload "
+          f"{host_ms:.3f} ms on the host; equal to plain, host and the "
+          "one-cluster entry")
     report["mtc_consensus_vote"] = dict(
-        name="consensus_vote", route="cuda",
+        name="consensus_vote_flat", route="cuda",
         source="minicom_tpu_torch/csrc/consensus.cu",
         replaces="minicom_tpu/ops/consensus.py:115", max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
         # the member rows that the vote gathers, not the whole store
-        **_bound(_nbytes(rd, col, *scratch[1:]) + M * L,
+        **_bound(M * (L + 16) + span + 4 * M,
                  M * L * OPS["vote_base"] + span * OPS["vote_column"]))
 
 
@@ -801,7 +827,11 @@ class _ConsensusCalls:
     of merge's re-votes) for a span: per call its members, bases, columns
     and segments, the consensus launches it made, its host wall seconds and
     the bytes its function must move (the member rows, (rd, col) as int64,
-    the ref and diffs asked for)."""
+    the ref and diffs asked for); with the span's ``_LaunchTimer``, also
+    the device seconds of its launches."""
+
+    def __init__(self, timer=None):
+        self.timer = timer
 
     def __enter__(self):
         self.calls = []
@@ -810,6 +840,7 @@ class _ConsensusCalls:
         def counted(readlen, seg_id, offsets, rids, dirs, n_segments,
                     codes_dev, want_ref=True, want_diffs=True):
             n0 = cuda.launches["mtc_consensus_vote"]
+            e0 = len(self.timer.events) if self.timer else 0
             t0 = time.perf_counter()
             out = self._fn(readlen, seg_id, offsets, rids, dirs, n_segments,
                            codes_dev, want_ref, want_diffs)
@@ -820,7 +851,10 @@ class _ConsensusCalls:
                 segments=int(np.count_nonzero(np.diff(out[1]))),
                 launches=cuda.launches["mtc_consensus_vote"] - n0,
                 wall_s=wall, bytes=M * (readlen + 16) + span * want_ref
-                + 4 * M * want_diffs))
+                + 4 * M * want_diffs,
+                events=self.timer.events[e0:] if self.timer else [],
+                peak_B=torch.cuda.max_memory_allocated()
+                if torch.cuda.is_available() else None))
             return out
 
         cluster.consensus_from_members = merge.consensus_from_members = counted
@@ -834,6 +868,12 @@ class _ConsensusCalls:
         """Prints the calls and returns their totals; fails where a call
         made more than one consensus launch, or one with members none."""
         c = self.calls
+        if self.timer:
+            torch.cuda.synchronize()
+        for x in c:
+            x["device_ms"] = sum(e0.elapsed_time(e1) for name, e0, e1
+                                 in x.pop("events")
+                                 if name == "mtc_consensus_vote")
         tot = {key: sum(x[key] for x in c)
                for key in ("members", "bases", "columns", "segments",
                            "launches", "wall_s", "bytes")}
@@ -845,10 +885,13 @@ class _ConsensusCalls:
                    share_of_bound=b["bound_ms"] / 1e3 / device_s
                    if device_s else None)
         print(f"[{tag}] consensus per consensus_from_members call (members, "
-              "bases, columns, segments, launches, host wall s): "
+              "bases, columns, clusters, launches, host wall s, device ms): "
               + json.dumps([[x["members"], x["bases"], x["columns"],
                              x["segments"], x["launches"],
-                             round(x["wall_s"], 4)] for x in c]))
+                             round(x["wall_s"], 4), round(x["device_ms"], 4)]
+                            for x in c]))
+        print(f"[{tag}] consensus: peak device memory after each call B: "
+              + json.dumps([x["peak_B"] for x in c]))
         print(f"[{tag}] consensus totals: " + json.dumps(tot))
         bad = [i for i, x in enumerate(c)
                if x["launches"] > 1 or (x["members"] and not x["launches"])]
@@ -947,8 +990,8 @@ def phase2_end_to_end(dev, tmp):
     print(f"[2] dataset {N_READS} reads x 100 bp generated in "
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    with _LaunchTimer() as lt, _SketchCalls() as sk, _ConsensusCalls() as cc, \
-            _ReadSketchCalls() as rs:
+    with _LaunchTimer() as lt, _SketchCalls() as sk, \
+            _ConsensusCalls(lt) as cc, _ReadSketchCalls() as rs:
         t0 = time.perf_counter()
         summary = compressor.compress(fq, arc, device=dev)
         enc_s = time.perf_counter() - t0

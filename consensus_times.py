@@ -45,7 +45,7 @@ def main() -> int:
             make_dataset(fq, n)
             torch.cuda.reset_peak_memory_stats()
             with chip_smoke._LaunchTimer() as lt, \
-                    chip_smoke._ConsensusCalls() as cc, \
+                    chip_smoke._ConsensusCalls(lt) as cc, \
                     chip_smoke._ReadSketchCalls() as rs:
                 summary = compressor.compress(fq, arc, device=dev)
             peak = torch.cuda.max_memory_allocated()

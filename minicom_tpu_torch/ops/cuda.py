@@ -33,8 +33,7 @@ _SIGS = {
     "mtc_sketch_reads": [_P, _I64, _P, _I64, _INT, _P, _P],
     "mtc_sketch_windowed": [_P, _P, _P, _I64, _INT, _INT, _P, _P, _P, _P,
                             _P, _P],
-    "mtc_consensus_vote": [_P, _I64, _P, _P, _I64, _I64, _INT, _P, _P, _P,
-                           _P],
+    "mtc_consensus_vote": [_P, _INT, _P, _I64, _I64, _INT, _INT, _P, _P, _P],
     "mtc_rans_encode": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "mtc_rans_decode": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _P],
     "mtc_popcount_verify": [_P, _P, _I64, _I64, _P, _P],

@@ -2,7 +2,7 @@
 
 ONE global sort by (minimizer k-mer, -aligned_pos, rid) per round defines the
 clusters as segments of the sorted array; the consensus of every cluster of
-a round is one segmented vote (``ops.consensus.consensus_vote``). The
+a round is one segmented vote (``ops.consensus.consensus_vote_flat``). The
 k-decreasing rounds and their stopping rules (new clustered reads < 100;
 k-round <= 9; round == R-1) are a host loop mirroring kt_for_bucket's
 ``last_rounds`` state machine.
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from minicom_tpu_torch.config import ResolvedConfig
-from minicom_tpu_torch.ops.consensus import consensus_vote
+from minicom_tpu_torch.ops.consensus import consensus_vote_flat
 from minicom_tpu_torch.ops.sketch import sketch_reads_gather
 from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.parallel.store import ShardedReadStore
@@ -123,18 +123,17 @@ def consensus_from_members(readlen: int, seg_id: np.ndarray, offsets: np.ndarray
     m0, m1 = int(seg_bounds[s0]), int(seg_bounds[s1])
     col0, col1 = int(ref_ptr[s0]), int(ref_ptr[s1])
     rids = np.asarray(rids[m0:m1], np.int64)
+    codes = codes_dev
     if isinstance(codes_dev, ShardedReadStore):
-        dev = codes_dev.local_dev.device
-        codes = to_device(codes_dev.rows(rids), dev)
+        codes = to_device(codes_dev.rows(rids), codes_dev.local_dev.device)
         rids = np.arange(m1 - m0, dtype=np.int64)
-    else:
-        dev, codes = codes_dev.device, codes_dev
-    ref, diffs = consensus_vote(
-        codes, to_device(rids * 2 + dirs[m0:m1], dev),
-        to_device(ref_ptr[seg_id[m0:m1]] - col0 + offsets[m0:m1], dev),
-        col1 - col0, want_ref, want_diffs)
+    ref, diffs = consensus_vote_flat(
+        codes, rids * 2 + dirs[m0:m1],
+        ref_ptr[seg_id[m0:m1]] - col0 + offsets[m0:m1],
+        seg_bounds[s0:s1 + 1] - m0, ref_ptr[s0:s1 + 1] - col0, col1 - col0,
+        want_ref, want_diffs)
     parts = dist.allgather_ragged_many(
-        [x.cpu().numpy() for x in (ref, diffs) if x is not None])
+        [x for x in (ref, diffs) if x is not None])
     ref = parts.pop(0) if want_ref else None
     diffs = parts.pop(0) if want_diffs else None
     return ref, ref_ptr, diffs

@@ -5,7 +5,8 @@ card (which has no jax, so without the repo conftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -q
     python -m pytest tests/test_torch_cuda.py --noconftest -q -k rans
 
-(the second: the rANS kernels alone, seconds).
+(the second: the rANS kernels alone, seconds; ``-k sketch`` and ``-k
+consensus`` take the other kernels alone).
 """
 
 import importlib.util
@@ -18,7 +19,8 @@ import torch
 from minicom_tpu_torch import CompressorConfig, compressor
 from minicom_tpu_torch.entropy import backend, device_ctx_rans, device_rans
 from minicom_tpu_torch.ops import cuda, rans
-from minicom_tpu_torch.ops.consensus import consensus_vote
+from minicom_tpu_torch.ops.consensus import (TILE, consensus_vote,
+                                             consensus_vote_flat)
 from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
                                         rans_decode_blocks,
                                         rans_encode_blocks)
@@ -149,6 +151,116 @@ def test_consensus_kernel_matches_plain(dev, want_ref, want_diffs):
         assert (w is None) == (g is None)
         if w is not None:
             np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def _flat_case(rng, sizes, spread, N=5000, L=100):
+    """Clusters of ``sizes`` members, first columns drawn from 0..spread
+    (one member at 0 and, with two or more, one at spread), members
+    shuffled within a cluster."""
+    codes = rng.integers(0, 4, (N, L), dtype=np.uint8)
+    codes[rng.random((N, L)) < 0.01] = 4
+    seg = np.repeat(np.arange(len(sizes)), sizes)
+    seg_ptr = np.r_[0, np.cumsum(sizes)].astype(np.int64)
+    off = rng.integers(0, np.repeat(spread, sizes) + 1)
+    off[seg_ptr[1:] - 1] = spread
+    off[seg_ptr[:-1]] = 0
+    for a, b in zip(seg_ptr[:-1], seg_ptr[1:]):
+        off[a:b] = rng.permutation(off[a:b])
+    mx = np.zeros(len(sizes), np.int64)
+    np.maximum.at(mx, seg, off)
+    col_ptr = np.r_[0, np.cumsum(mx + L)].astype(np.int64)
+    rd = rng.integers(0, N, len(seg)) * 2 + rng.integers(0, 2, len(seg))
+    return codes, rd, col_ptr[seg] + off, seg_ptr, col_ptr
+
+
+def _flat_equal(dev, codes, rd, col, seg_ptr, col_ptr, wants=((True,
+                                                               True),)):
+    span = int(col_ptr[-1])
+    c, d = torch.from_numpy(codes), torch.from_numpy(codes).to(dev)
+    for want_ref, want_diffs in wants:
+        want = consensus_vote_flat(c, rd, col, seg_ptr, col_ptr, span,
+                                   want_ref, want_diffs)
+        n0 = cuda.launches["mtc_consensus_vote"]
+        got = consensus_vote_flat(d, rd, col, seg_ptr, col_ptr, span,
+                                  want_ref, want_diffs)
+        assert cuda.launches["mtc_consensus_vote"] == n0 + 1
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                np.testing.assert_array_equal(g, w)
+
+
+def test_consensus_flat_kernel_matches_plain(dev):
+    """Round-like clusters of ~100 columns, medium ones and a few many
+    tiles wide, every want pair: one launch each, equal to the plain
+    version."""
+    rng = np.random.default_rng(21)
+    sizes = np.r_[rng.integers(2, 30, 3000), rng.integers(10, 80, 40),
+                  rng.integers(100, 900, 5)]
+    spread = np.r_[rng.integers(0, 60, 3000), rng.integers(1000, 1900, 40),
+                   rng.integers(3000, 12000, 5)]
+    _flat_equal(dev, *_flat_case(rng, sizes, spread),
+                ((True, True), (True, False), (False, True)))
+
+
+def test_consensus_one_wide_segment(dev):
+    """One cluster of 20,000 columns and 3,000 members in no order."""
+    rng = np.random.default_rng(22)
+    case = _flat_case(rng, np.array([3000]), np.array([19_900]))
+    assert case[4][-1] == 20_000
+    _flat_equal(dev, *case)
+
+
+def test_consensus_member_split_across_tiles(dev):
+    """Members that straddle the first tile boundary of a wide cluster, on
+    both strands, and nothing else near it."""
+    rng = np.random.default_rng(23)
+    codes = rng.integers(0, 4, (50, 100), dtype=np.uint8)
+    col = np.r_[0, TILE - 40, TILE - 99, TILE - 1, 2 * TILE]
+    rd = np.array([0, 2, 5, 7, 8])
+    _flat_equal(dev, codes, rd, col, np.array([0, 5]),
+                np.array([0, 2 * TILE + 100]),
+                ((True, True), (False, True)))
+
+
+def test_consensus_members_shuffled_across_segments(dev):
+    """The tensor entry with members of many clusters in a random order
+    (one cluster to it): equal to the plain version, one launch."""
+    rng = np.random.default_rng(24)
+    codes, rd, col, _, col_ptr = _flat_case(rng, rng.integers(1, 40, 500),
+                                            rng.integers(0, 300, 500))
+    p = rng.permutation(len(rd))
+    args = [torch.from_numpy(a) for a in (codes, rd[p], col[p])]
+    want = consensus_vote(*args, int(col_ptr[-1]))
+    n0 = cuda.launches["mtc_consensus_vote"]
+    got = consensus_vote(*(a.to(dev) for a in args), int(col_ptr[-1]))
+    assert cuda.launches["mtc_consensus_vote"] == n0 + 1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+def test_consensus_one_launch_per_call_in_compress(dev, tmp_path):
+    """A compress makes one consensus launch per consensus_from_members
+    call (cluster rounds and merge re-votes) and writes the CPU's
+    archive."""
+    from bench import make_dataset
+    from minicom_tpu_torch.pipeline import cluster, merge
+    fq = str(tmp_path / "in.fastq")
+    make_dataset(fq, 20_000)
+    calls, fn = [], cluster.consensus_from_members
+
+    def counted(*a, **k):
+        calls.append(len(a[1]))
+        return fn(*a, **k)
+
+    cluster.consensus_from_members = merge.consensus_from_members = counted
+    try:
+        a, launched = _cuda_equals_cpu(dev, tmp_path, CompressorConfig(), fq)
+    finally:
+        cluster.consensus_from_members = merge.consensus_from_members = fn
+    n_cuda = len(calls) // 2          # the cuda run's calls come first
+    assert all(calls[:n_cuda])
+    assert launched["mtc_consensus_vote"] == n_cuda > 0
 
 
 def test_wrappers_refuse_other_devices(dev):
