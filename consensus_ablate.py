@@ -94,7 +94,8 @@ def build(variants, out_dir):
         print(f"[ablate] {name}: " + "; ".join(
             ln.split(":", 1)[-1].strip() for ln in err.splitlines()
             if "registers" in ln or "spill" in ln))
-        fn = getattr(ctypes.CDLL(cu[:-3] + ".so"), "mtc_consensus_vote")
+        lib = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
+        fn = lib.mtc_consensus_vote
         fn.restype = ctypes.c_int
         fn.argtypes = cuda._SIGS["mtc_consensus_vote"]
         fns[name] = fn
