@@ -69,21 +69,11 @@ def test_matches_fused_program(rng):
 
 def test_matches_multi_block_chain(rng):
     codes, rd, col, _, colptr = _members(rng, N=900, L=100, C=80)
-    span, M = int(colptr[-1]), len(rd)
-    Tp = 1 << max(4, (span - 1).bit_length())
-    step = 128
-    u = _packed_upload(rd, col, step, Tp)
-    table = jnp.zeros((Tp, 4), jnp.int32)
-    for i in range(u.shape[0]):
-        table = scatter_counts_rid_u(table, jnp.asarray(codes), u[i])
-    packed = consensus_finalize(table)
-    diffs = np.concatenate([
-        np.asarray(member_diffs_packed_rid_u(packed, jnp.asarray(codes), u[i]))
-        for i in range(u.shape[0])])[:M].astype(np.int32)
+    span = int(colptr[-1])
+    want_ref, want_diffs = _jax_chain(codes, rd, col, span, step=128)
     ref, got_diffs = _port(codes, rd, col, span)
-    np.testing.assert_array_equal(
-        ref, unpack_2bit_words(np.asarray(packed), span))
-    np.testing.assert_array_equal(got_diffs, diffs)
+    np.testing.assert_array_equal(ref, want_ref)
+    np.testing.assert_array_equal(got_diffs, want_diffs)
 
 
 @pytest.mark.parametrize("want_ref,want_diffs",
@@ -182,6 +172,20 @@ def _run_plan(codes, rd, col, seg_ptr, col_ptr, want_ref, want_diffs,
     return tiles, (ref if want_ref else None), (diffs if want_diffs else None)
 
 
+def _jax_chain(codes, rd, col, span, step=256):
+    """The JAX multi-block scatter / finalize / diffs chain."""
+    Tp = 1 << max(4, (span - 1).bit_length())
+    u = _packed_upload(rd, col, step, Tp)
+    table = jnp.zeros((Tp, 4), jnp.int32)
+    for i in range(u.shape[0]):
+        table = scatter_counts_rid_u(table, jnp.asarray(codes), u[i])
+    packed = consensus_finalize(table)
+    diffs = np.concatenate([
+        np.asarray(member_diffs_packed_rid_u(packed, jnp.asarray(codes), u[i]))
+        for i in range(u.shape[0])])[:len(rd)].astype(np.int32)
+    return unpack_2bit_words(np.asarray(packed), span), diffs
+
+
 def _jax_fused(codes, rd, col, span):
     Tp = 1 << max(4, (span - 1).bit_length())
     packed, diffs = consensus_fused_rid_u(
@@ -210,7 +214,8 @@ PLAN_CASES = {   # name: (sizes, spread, pad, tile)
 @pytest.mark.parametrize("name", list(PLAN_CASES))
 def test_plan_matches_plain_jax_and_host(name):
     """The tile plan run tile by tile == the plain version == the JAX fused
-    program == the host twin, ref and diffs."""
+    program == the JAX multi-block chain == the host twin, ref and
+    diffs."""
     rng = np.random.default_rng(len(name))
     sizes_f, spread_f, pad, tile = PLAN_CASES[name]
     sizes = sizes_f(rng)
@@ -222,11 +227,12 @@ def test_plan_matches_plain_jax_and_host(name):
     pref, pdiffs = consensus_vote_flat(torch.from_numpy(codes), rd, col,
                                        seg_ptr, col_ptr, span)
     jref, jdiffs = _jax_fused(codes, rd, col, span)
+    cref, cdiffs = _jax_chain(codes, rd, col, span)
     href, hdiffs = native.consensus_host(codes, rd, col, seg_ptr, col_ptr,
                                          span, True, True)
-    for want in (pref, jref, href):
+    for want in (pref, jref, cref, href):
         np.testing.assert_array_equal(ref, want)
-    for want in (pdiffs, jdiffs, hdiffs):
+    for want in (pdiffs, jdiffs, cdiffs, hdiffs):
         np.testing.assert_array_equal(diffs, want)
     per_tile = [np.searchsorted(seg_ptr, [t[3], t[4]]) for t in tiles
                 if not t[5]]
