@@ -11,7 +11,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      the main path's shapes; kernel times are from CUDA graphs of 20
      launches (a launch from Python outlasts these kernels; medians of 10
      replays bracketed by CUDA events), the plain versions' from events
-     around single calls. The consensus vote runs the first cluster
+     around single calls. The read minimizer runs both entries on 2^17
+     reads x 100 at k in (31, 17, 4, 30), on 1, 33 and 255 reads, and on
+     2^15 reads of L in (36, 101, 150, 256), also with 1, 2 and 4 lanes a
+     read whatever the size. The consensus vote runs the first cluster
      round's ejection pass of the phase-3 set as the round calls it (its
      clusters' pointers, one launch), also against the host twin and the
      one-cluster tensor entry. The contig sketch runs 2048 rows of each rung
@@ -39,7 +42,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      ``consensus_from_members`` call (members, bases, columns, clusters,
      launches, host wall; the device seconds and the bound of that work): a
      call that makes other than one launch fails the phase; and the read
-     minimizer per call (reads, k, launches; device seconds and bound).
+     minimizer per ``sketch_reads_flat`` call (reads, k, launches, host
+     wall, device ms; the bound of that work): more launches than calls
+     fail the phase.
      Then the same with codec="device" (the on-device entropy coders): exact
      roundtrip, rANS encode launched during compress and rANS decode during
      decompress: at most one decode launch per device-coded stream (two for
@@ -189,17 +194,20 @@ INT_OPS_S = 16.75e12
 # division, a modulo or a population count taken as one operation, loads and
 # stores as none. Too few only lowers a bound, which then still holds.
 OPS = {
-    # one k-mer start of a read (k-mers of up to 62 bits lie in two words):
-    # roll the forward k-mer (2 funnel shifts, or, mask) 4, roll the reverse
-    # complement (xor 3, shift up, 2 funnel shifts, or) 5, the canonical one
-    # (64-bit compare, two selects) 4, the palindrome rule (64-bit equality,
-    # select) 3, mix32 (4 multiplies, 4 xors, 3 shifts) 11, the first
-    # minimum (compare, select rank and position) 3
-    "kmer_min": 30,
-    # one k-mer start of a contig row: the first five of the above 27, in
-    # the row (add, compare) 2, the window minimum and the covering maximum
-    # in running form 3 + 3, emitted (two compares) 2, its running count 1,
-    # within the cap and its slot 2, position and strand 2
+    # one k-mer start of a read (k-mers of up to 62 bits lie in two words,
+    # the read's bases 16 to a word): the forward k-mer off the words (2
+    # funnel shifts, mask) 3, roll the reverse complement (rotate the new
+    # base into place, mask and or, shift, funnel shift) 4, the canonical
+    # one (64-bit compare, two selects) 4, mix32 (4 multiplies, 4 xors, 3
+    # shifts) 11, the first minimum (compare, select rank and position) 3;
+    # at even k the palindrome rule (64-bit equality, select) adds 3: odd k
+    # has no palindromes
+    "kmer_min": 25, "kmer_palindrome": 3,
+    # one k-mer start of a contig row: roll the forward k-mer 4, the reverse
+    # complement 5, the canonical one 4, the palindrome rule 3, mix32 11,
+    # in the row (add, compare) 2, the window minimum and the covering
+    # maximum in running form 3 + 3, emitted (two compares) 2, its running
+    # count 1, within the cap and its slot 2, position and strand 2
     "kmer_window": 42,
     # one base of a member row: complement 1, a real base 1, its counter's
     # index (add the column, shift-or) 2, count 1, differs from the
@@ -222,6 +230,11 @@ OPS = {
 }
 
 
+def kmer_min_ops(k: int) -> int:
+    """``OPS`` of one k-mer start of the read minimizer at k."""
+    return OPS["kmer_min"] + (OPS["kmer_palindrome"] if k % 2 == 0 else 0)
+
+
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -239,35 +252,80 @@ def _bound(nbytes: float, ops: float) -> dict:
                 library_ms=None)
 
 
-def phase1_sketch_reads(dev, report):
-    rng = np.random.default_rng(1)
-    n, L = 1 << 17, 100
+def _reads_store(rng, n, L):
+    """[n, L] codes with palindromic rows (0, 3, 0, 3, ...; at even k every
+    k-mer) and rows of one base among random ones."""
     codes = rng.integers(0, 4, (n, L), dtype=np.uint8)
-    codes[:64] = np.tile(np.array([0, 3], np.uint8), L // 2)  # palindromic
-    rids = rng.permutation(n).astype(np.int64)
-    c, r = torch.from_numpy(codes).to(dev), torch.from_numpy(rids).to(dev)
+    codes[:64] = np.resize(np.array([0, 3], np.uint8), L)
+    codes[64:96] = 2
+    return codes
+
+
+def _check_reads(dev, tag, codes, c, rids, ks) -> int:
+    """Both entries of the read minimizer on the card (one launch each)
+    against the plain version and the host twin, for each k, and the kernel
+    with 1, 2 and 4 lanes a read against the plain version; returns the
+    max |diff| (0)."""
+    r = torch.from_numpy(rids).to(dev)
     err = 0
-    for k in (31, 17, 4, 30):
-        got = sketch.sketch_reads_gather(c, r, k)
-        plain = sketch._sketch_reads_plain(c, r, k)
+    for k in ks:
+        n0 = cuda.launches["mtc_sketch_reads"]
+        flat = sketch.sketch_reads_flat(c, rids, k)
+        got = sketch.sketch_reads_gather(c, r, k).cpu().numpy()
+        if cuda.launches["mtc_sketch_reads"] != n0 + 2 * (len(rids) > 0):
+            raise AssertionError(f"{tag} k={k}: not one launch a call")
+        plain = sketch._sketch_reads_plain(c, r, k).cpu().numpy()
         hi, lo, pos, z = native.sketch_reads_host(codes, rids, k)
-        err = max(err, _equal(f"sketch_reads k={k} vs plain",
-                              got.cpu().numpy(), plain.cpu().numpy()))
-        _equal(f"sketch_reads k={k} vs host", got.cpu().numpy(),
+        err = max(err, _equal(f"{tag} k={k} flat vs plain", flat, plain),
+                  _equal(f"{tag} k={k} gather vs plain", got, plain))
+        out = torch.empty((3, len(rids)), dtype=torch.int32, device=dev)
+        for lanes in (1, 2, 4):   # every split of a read, whatever the size
+            cuda.launch("mtc_sketch_reads_lanes", c, c.shape[1], r,
+                        len(rids), k, lanes, out)
+            err = max(err, _equal(f"{tag} k={k} {lanes} lanes a read",
+                                  out.cpu().numpy().view(np.uint32), plain))
+        _equal(f"{tag} k={k} vs host", flat,
                np.stack([hi, lo, (pos.astype(np.uint32) << 1) | z]))
-    out = torch.empty((3, n), dtype=torch.uint32, device=dev)
+    return err
+
+
+def phase1_sketch_reads(dev, report):
+    """The read minimizer: 2^17 reads x 100 (a permutation of the store,
+    the first cluster round's shape) at k in (31, 17, 4, 30), then 2^15
+    reads (rids with repeats) of L in (36, 101, 150, 256), and 1, 33, 255
+    reads of the first store; both entries against the plain version and
+    the host twin. The 2^17 set at k = 31 is timed from CUDA graphs."""
+    rng = np.random.default_rng(1)
+    ks = (31, 17, 4, 30)
+    n, L = 1 << 17, 100
+    codes = _reads_store(rng, n, L)
+    rids = rng.permutation(n).astype(np.int64)
+    c = torch.from_numpy(codes).to(dev)
+    err = _check_reads(dev, f"sketch_reads {n} x {L}", codes, c, rids, ks)
+    for m in (1, 33, 255):
+        err = max(err, _check_reads(dev, f"sketch_reads {m} x {L}", codes,
+                                    c, rng.integers(0, n, m), ks))
+    for Lx in (36, 101, 150, 256):
+        cx = _reads_store(rng, 1 << 15, Lx)
+        err = max(err, _check_reads(
+            dev, f"sketch_reads {1 << 15} x {Lx}", cx,
+            torch.from_numpy(cx).to(dev), rng.integers(0, 1 << 15, 1 << 15),
+            ks))
+    r = torch.from_numpy(rids).to(dev)
+    out = torch.empty((3, n), dtype=torch.int32, device=dev)
     ms = _graph_ms(lambda: cuda.launch("mtc_sketch_reads", c, L, r, n, 31,
                                        out))
     plain_ms = _ms(lambda: sketch._sketch_reads_plain(c, r, 31), 5)
-    print(f"[1] sketch_reads_gather {n} x {L} k=31: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; equal to plain and host for k in "
-          "31,17,4,30")
+    print(f"[1] sketch_reads {n} x {L} k=31: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; flat and gather entries equal to plain and "
+          f"host for k in {ks} at {n} x {L}, 1, 33 and 255 reads, and "
+          f"{1 << 15} reads of L in (36, 101, 150, 256)")
     report["mtc_sketch_reads"] = dict(
-        name="sketch_reads_gather", route="cuda",
+        name="sketch_reads_flat", route="cuda",
         source="minicom_tpu_torch/csrc/sketch.cu",
         replaces="minicom_tpu/ops/sketch.py:146", max_abs_err=err, ms=ms,
         plain_ms=plain_ms,
-        **_bound(_nbytes(c, r, out), n * (L - 31 + 1) * OPS["kmer_min"]))
+        **_bound(_nbytes(c, r, out), n * (L - 31 + 1) * kmer_min_ops(31)))
 
 
 def _sketch_work(lens, k, w, mb, nv, last_end):
@@ -902,42 +960,67 @@ class _ConsensusCalls:
 
 
 class _ReadSketchCalls:
-    """Wraps the cluster rounds' ``sketch_reads_gather`` for a span: per call
-    the reads sketched, k and the launches; the bytes and operations of the
-    work (every k-mer start of every read ranked, ``OPS["kmer_min"]``)."""
+    """Wraps the cluster rounds' ``sketch_reads_flat`` for a span: per call
+    the reads sketched, k, the launches and the host wall seconds; with the
+    span's ``_LaunchTimer``, the device ms of its launches; the bytes and
+    operations of the work (every k-mer start of every read ranked,
+    ``kmer_min_ops``)."""
+
+    def __init__(self, timer=None):
+        self.timer = timer
 
     def __enter__(self):
         self.calls = []
-        self._fn = cluster.sketch_reads_gather
+        self._fn = cluster.sketch_reads_flat
 
         def counted(codes, rids, k):
             n0 = cuda.launches["mtc_sketch_reads"]
+            e0 = len(self.timer.events) if self.timer else 0
+            t0 = time.perf_counter()
             out = self._fn(codes, rids, k)
-            n, L = rids.shape[0], codes.shape[1]
+            wall = time.perf_counter() - t0
+            n, L = len(rids), codes.shape[1]
+            starts = n * max(L - k + 1, 0)
             self.calls.append(dict(
-                reads=n, k=k, starts=n * max(L - k + 1, 0),
+                reads=n, k=k, starts=starts, ops=starts * kmer_min_ops(k),
                 bytes=n * (L + 8 + 12),
-                launches=cuda.launches["mtc_sketch_reads"] - n0))
+                launches=cuda.launches["mtc_sketch_reads"] - n0, wall_s=wall,
+                events=self.timer.events[e0:] if self.timer else []))
             return out
 
-        cluster.sketch_reads_gather = counted
+        cluster.sketch_reads_flat = counted
         return self
 
     def __exit__(self, *exc):
-        cluster.sketch_reads_gather = self._fn
+        cluster.sketch_reads_flat = self._fn
 
     def report(self, tag, device_s):
+        """Prints the calls and returns their totals; fails where the calls
+        made more launches than there were calls."""
         c = self.calls
+        if self.timer:
+            torch.cuda.synchronize()
+        for x in c:
+            x["device_ms"] = sum(e0.elapsed_time(e1) for name, e0, e1
+                                 in x.pop("events")
+                                 if name == "mtc_sketch_reads")
         tot = {key: sum(x[key] for x in c)
-               for key in ("reads", "starts", "bytes", "launches")}
-        b = _bound(tot["bytes"], tot["starts"] * OPS["kmer_min"])
+               for key in ("reads", "starts", "ops", "bytes", "launches",
+                           "wall_s")}
+        b = _bound(tot["bytes"], tot["ops"])
         tot.update(calls=len(c), device_s=device_s, bound_ms=b["bound_ms"],
                    bound_by=b["bound_by"],
                    share_of_bound=b["bound_ms"] / 1e3 / device_s
                    if device_s else None)
-        print(f"[{tag}] read minimizer per call (reads, k, launches): "
-              + json.dumps([[x["reads"], x["k"], x["launches"]] for x in c]))
+        print(f"[{tag}] read minimizer per sketch_reads_flat call (reads, k, "
+              "launches, host wall s, device ms): " + json.dumps(
+                  [[x["reads"], x["k"], x["launches"], round(x["wall_s"], 5),
+                    round(x["device_ms"], 4)] for x in c]))
         print(f"[{tag}] read minimizer totals: " + json.dumps(tot))
+        if tot["launches"] > tot["calls"]:
+            raise AssertionError(f"{tot['launches']} read-minimizer launches "
+                                 f"for {tot['calls']} sketch_reads_flat "
+                                 "calls")
         return tot
 
 
@@ -991,7 +1074,7 @@ def phase2_end_to_end(dev, tmp):
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     with _LaunchTimer() as lt, _SketchCalls() as sk, \
-            _ConsensusCalls(lt) as cc, _ReadSketchCalls() as rs:
+            _ConsensusCalls(lt) as cc, _ReadSketchCalls(lt) as rs:
         t0 = time.perf_counter()
         summary = compressor.compress(fq, arc, device=dev)
         enc_s = time.perf_counter() - t0

@@ -46,7 +46,7 @@ def main() -> int:
             torch.cuda.reset_peak_memory_stats()
             with chip_smoke._LaunchTimer() as lt, \
                     chip_smoke._ConsensusCalls(lt) as cc, \
-                    chip_smoke._ReadSketchCalls() as rs:
+                    chip_smoke._ReadSketchCalls(lt) as rs:
                 summary = compressor.compress(fq, arc, device=dev)
             peak = torch.cuda.max_memory_allocated()
             secs = lt.seconds()

@@ -16,10 +16,29 @@
 // minimizer of rows gathered by rid, first minimum wins, [3, n] u32 out =
 // (hi, lo, end_pos << 1 | strand); a read with no valid k-mer gets zeros.
 // The JAX program builds every k-mer with k_max shifted ORs over the whole
-// [N, L] matrix plus a roll; here one thread rolls one read (L <= 256) in
-// registers. Bound: the L bytes each thread reads (strided by L between
-// neighbouring threads, served by L1) and ~10 integer ops per base; no
-// intermediate touches device memory.
+// [N, L] matrix plus a roll. Here a warp takes 32 reads at a time (L <=
+// 256):
+//  - it stages their rows in shared memory, 2 bits a base: the lanes of a
+//    row load its 16-byte aligned chunks (coalesced; a few rows a load
+//    instruction), each packs its chunk into one word, and a funnel shift
+//    with the next lane's word takes out the row's offset in its chunk; the
+//    row stride in words is odd, so 32 lanes reading one word of 32 rows
+//    hit 32 banks;
+//  - a lane extracts its first k-mer whole from the packed words; after
+//    that the forward k-mer is read off three words in registers by funnel
+//    shifts (no chain from step to step) and the reverse complement rolls,
+//    its new base rotated into place, one shared-memory load a 16 bases;
+//    for k >= 17 every shift is a 32-bit one; palindromes are tested in the
+//    even-k loop only; the loop carries the best (rank, start), and the
+//    winner's k-mer and strand are rebuilt once;
+//  - a call too small to fill the card (the entry point decides from its
+//    reads and the SM count) gives a read 2 or 4 lanes, each ranking a strip
+//    of its starts, combined by shuffles, the first start winning ties;
+//  - the grid is what the card holds at once: each warp walks its groups of
+//    reads and has L2 prefetch the next group's rows while it ranks this
+//    one, so loads and ranking overlap instead of alternating in waves.
+// Bound: the integer operations of the ranks (about 25 a k-mer start); the
+// rows are read once, coalesced; no intermediate touches device memory.
 //
 // mtc_sketch_windowed replaces minicom_tpu/ops/pallas_sketch.py::_sketch_kernel
 // (through sketch_windowed_pallas_compact32) and folds in the row gather of
@@ -64,10 +83,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
 constexpr uint32_t kU32Max = 0xFFFFFFFFu;
-constexpr int kReadThreads = 256;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo) {
     uint32_t h = (hi * 0x9E3779B1u) ^ (lo * 0x85EBCA77u);
@@ -77,38 +99,6 @@ __device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo) {
     h *= 0xC2B2AE35u;
     h ^= h >> 16;
     return h;
-}
-
-__global__ void __launch_bounds__(kReadThreads)
-sketch_reads_kernel(const uint8_t* __restrict__ codes, int64_t L,
-                    const int64_t* __restrict__ rids, int64_t n, int k,
-                    uint32_t* __restrict__ out) {
-    const int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    const uint8_t* seq = codes + rids[i] * L;
-    const uint64_t kmask = (k < 32) ? ((1ULL << (2 * k)) - 1) : ~0ULL;
-    const int rc_shift = 2 * (k - 1);
-    uint64_t fwd = 0, rc = 0, best_kmer = 0;
-    uint32_t best = kU32Max, best_pos = 0, best_z = 0;
-    for (int64_t j = 0; j < L; ++j) {
-        const uint64_t nb = seq[j];
-        fwd = ((fwd << 2) | nb) & kmask;
-        rc = (rc >> 2) | ((nb ^ 3ULL) << rc_shift);
-        if (j + 1 < k || fwd == rc) continue;
-        const uint32_t z = fwd < rc ? 0u : 1u;
-        const uint64_t canon = z ? rc : fwd;
-        const uint32_t h = mix32((uint32_t)(canon >> 32), (uint32_t)canon);
-        if (h < best) {
-            best = h;
-            best_kmer = canon;
-            best_pos = (uint32_t)j;
-            best_z = z;
-        }
-    }
-    const bool none = best == kU32Max;
-    out[i] = none ? 0u : (uint32_t)(best_kmer >> 32);
-    out[n + i] = none ? 0u : (uint32_t)best_kmer;
-    out[2 * n + i] = none ? 0u : (best_pos << 1) | best_z;
 }
 
 constexpr int kThreads = 128;  // threads per block of the contig sketch
@@ -171,6 +161,270 @@ __device__ __forceinline__ uint64_t revcomp(uint64_t x, int k) {
     x = __brevll(~x);
     x = ((x >> 1) & 0x5555555555555555ULL) | ((x & 0x5555555555555555ULL) << 1);
     return x >> (64 - 2 * k);
+}
+
+// ---- the read minimizer ------------------------------------------------
+
+// Threads a block: the most (a call of one lane a read), and for a call
+// of 2 or 4 lanes a read, which has few reads, so that its blocks spread
+// over more SMs.
+constexpr int kReadThreads = 512;
+constexpr int kSmallThreads = 128;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kLoadsInFlight = 4;  // chunks a lane loads before packing
+// Reads an SM for one lane a read: a call with fewer reads than this for
+// every SM takes two lanes a read, one with fewer than half of it four.
+constexpr int64_t kFillReads = 256;
+
+// Words a staged row takes: its 16-base words, made odd, so that 32 lanes
+// reading word q of 32 rows hit 32 banks.
+__host__ __device__ inline int read_stride(int64_t L) {
+    return (int)((L + 15) >> 4) | 1;
+}
+
+// Words of a warp's region: a word before the first row (read, masked
+// off, by the first k-mers' high words), 32 rows and the two words that
+// kmer_at reads past the end of the last row.
+__host__ __device__ inline int read_region(int stride) {
+    return 1 + 32 * stride + 2;
+}
+
+// Lanes that stage one row: the 16-byte chunks a row of L bases can touch
+// from a 16-byte aligned address, as a power of two (at most 32 for
+// L <= 256).
+__host__ __device__ inline int chunk_lanes(int64_t L) {
+    const int c = (int)((L + 30) >> 4);
+    int g = 1;
+    while (g < c) g <<= 1;
+    return g;
+}
+
+// The 16 codes (0..3) of a 16-byte chunk, 2 bits each, the first byte's in
+// the top bits: one multiply gathers the four of a word into its top byte,
+// and byte permutes join the four.
+__device__ __forceinline__ uint32_t pack16(uint4 v) {
+    const uint32_t m = 0x03030303u, f = 0x40100401u;
+    const uint32_t lo = __byte_perm((v.w & m) * f, (v.z & m) * f, 0x0073);
+    const uint32_t hi = __byte_perm((v.y & m) * f, (v.x & m) * f, 0x0073);
+    return __byte_perm(lo, hi, 0x5410);
+}
+
+// Copies rows 0..R-1 of the warp (reads first + r, up to n) into its region,
+// 16 bases a word, first base in the top bits. A row takes G lanes
+// (chunk_lanes): lane c of the row loads the row's c-th 16-byte aligned
+// chunk and packs it into one word, and row word c is that word joined to
+// the next lane's by a funnel shift (the row's offset in its first chunk),
+// so a load instruction stages 32 / G rows. kLoadsInFlight loads a lane
+// are issued before any of them is packed.
+__device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ codes,
+                                           int64_t L,
+                                           const int64_t* __restrict__ rids,
+                                           int64_t first, int64_t n, int R,
+                                           int stride, uint32_t* region) {
+    const int lane = threadIdx.x & 31;
+    const int G = chunk_lanes(L), per = 32 / G;
+    const int sub = lane / G, c = lane % G;
+    const int nw = (int)((L + 15) >> 4);
+    for (int r0 = 0; r0 < R; r0 += kLoadsInFlight * per) {
+        uint4 v[kLoadsInFlight];
+        int sh[kLoadsInFlight];
+#pragma unroll
+        for (int u = 0; u < kLoadsInFlight; ++u) {
+            const int r = r0 + u * per + sub;
+            v[u] = make_uint4(0u, 0u, 0u, 0u);
+            sh[u] = 0;
+            if (r < R && first + r < n) {
+                const uintptr_t a = (uintptr_t)(codes + rids[first + r] * L);
+                sh[u] = (int)(a & 15);
+                // a chunk that holds at least one base of the row: within
+                // the store's allocation (aligned to 256 bytes or more)
+                if (16 * c < sh[u] + L) {
+                    v[u] = __ldg(reinterpret_cast<const uint4*>(
+                                     a & ~(uintptr_t)15) + c);
+                }
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < kLoadsInFlight; ++u) {
+            const int r = r0 + u * per + sub;
+            const uint32_t p = pack16(v[u]);
+            const uint32_t next = __shfl_down_sync(kFull, p, 1);
+            if (r < R && c < nw) {
+                region[r * stride + c] = __funnelshift_l(next, p, 2 * sh[u]);
+            }
+        }
+    }
+    __syncwarp();
+}
+
+// The rank of a k-mer given forward and reverse complement as (hi, lo)
+// words: mix32 of the smaller; kU32Max for a palindrome (even k only).
+template <bool kBig, bool kEven>
+__device__ __forceinline__ uint32_t rank_of(uint32_t fh, uint32_t fl,
+                                            uint32_t rh, uint32_t rl) {
+    uint32_t h;
+    if (kBig) {
+        const uint64_t f = ((uint64_t)fh << 32) | fl;
+        const uint64_t r = ((uint64_t)rh << 32) | rl;
+        const bool lt = f < r;
+        h = mix32(lt ? fh : rh, lt ? fl : rl);
+        if (kEven && f == r) h = kU32Max;
+    } else {
+        h = mix32(0u, min(fl, rl));
+        if (kEven && fl == rl) h = kU32Max;
+    }
+    return h;
+}
+
+// (rank << 32 | start) of the first minimum-rank k-mer among those ending
+// at bases lo..hi of a staged row (pk[-1] must be readable). The k-mer
+// ending at lo is ranked whole from the packed words when it is the row's
+// first (lo = k - 1); otherwise the one ending at lo - 1 seeds the roll
+// unranked. After that, the k-mer ending at base e = E + u (E a multiple of
+// 16) is read off three words in registers, W2, W1, W0 = the bases from
+// E - 32, E - 16 and E: its low word is funnelshift(W0, W1, 2u + 2), its
+// high word (kBig, k >= 17) the same of (W1, W2) under a mask, so the
+// forward k-mer carries no chain; the reverse complement rolls, its new
+// base rotated from ~W0 into place. Whole blocks of 16 ends are unrolled,
+// with compile-time shifts; the first and last are rolled.
+template <bool kBig, bool kEven>
+__device__ __forceinline__ uint64_t strip_min(const uint32_t* pk, int lo,
+                                              int hi, int k) {
+    const int e0 = lo == k - 1 ? lo : lo - 1;  // the seed's end
+    const uint64_t f = kmer_at(pk, e0 - k + 1, k);
+    const uint64_t rc = revcomp(f, k);
+    uint32_t rh = (uint32_t)(rc >> 32), rl = (uint32_t)rc;
+    uint32_t best = e0 == lo ? rank_of<kBig, kEven>((uint32_t)(f >> 32),
+                                                    (uint32_t)f, rh, rl)
+                             : kU32Max;
+    int bpos = 0;
+    const int rs = kBig ? 2 * k - 34 : 2 * k - 2;
+    const uint32_t m3 = 3u << rs;
+    const uint32_t mask = kBig ? (1u << (2 * k - 32)) - 1u
+                               : 0xFFFFFFFFu >> (32 - 2 * k);
+    // ends e0 + 1 .. hi are rolled; start = e - k + 1
+    int E = (e0 + 1) & ~15;
+    uint32_t W2 = kBig ? pk[(E >> 4) - 2] : 0u, W1 = pk[(E >> 4) - 1];
+    auto step = [&](uint32_t W0, uint32_t cwr, int u) {
+        // u = 15 takes the whole low word (a funnel shift wraps at 32)
+        const int sh = 2 * u + 2;
+        const uint32_t fl = (u == 15 ? W0 : __funnelshift_l(W0, W1, sh))
+                            & (kBig ? 0xFFFFFFFFu : mask);
+        const uint32_t fh =
+            kBig ? (u == 15 ? W1 : __funnelshift_l(W1, W2, sh)) & mask : 0u;
+        const uint32_t c = __funnelshift_l(cwr, cwr, 2 * u) & m3;
+        if (kBig) {
+            rl = __funnelshift_r(rl, rh, 2);
+            rh = (rh >> 2) | c;
+        } else {
+            rl = (rl >> 2) | c;
+        }
+        const uint32_t h = rank_of<kBig, kEven>(fh, fl, rh, rl);
+        if (h < best) {
+            best = h;
+            bpos = E + u - k + 1;
+        }
+    };
+    for (; E <= hi; E += 16) {
+        const uint32_t W0 = pk[E >> 4];
+        const uint32_t cw = ~W0;
+        const uint32_t cwr = __funnelshift_l(cw, cw, rs + 2);
+        if (E > e0 && E + 15 <= hi) {
+#pragma unroll
+            for (int u = 0; u < 16; ++u) step(W0, cwr, u);
+        } else {  // a strip's first or last block: rolled, shifts at run time
+            const int ub = min(hi - E, 15);
+#pragma unroll 1
+            for (int u = max(e0 + 1 - E, 0); u <= ub; ++u) step(W0, cwr, u);
+        }
+        W2 = W1;
+        W1 = W0;
+    }
+    return ((uint64_t)best << 32) | (uint32_t)bpos;
+}
+
+// Asks L2 for the cache lines of a row (no registers held, nothing waits).
+__device__ __forceinline__ void prefetch_row(const uint8_t* row, int64_t L) {
+    const uintptr_t end = (uintptr_t)row + L;
+    for (uintptr_t p = (uintptr_t)row & ~(uintptr_t)127; p < end; p += 128) {
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+    }
+}
+
+// The first end base of lane t's strip of a read: the ends k - 1 .. L - 1
+// cut near t / g of the way, at a multiple of 16, so that every strip but
+// the first rolls whole blocks of 16 ends from its start.
+__device__ __forceinline__ int strip_cut(int t, int g, int S, int k, int L) {
+    if (t == 0) return k - 1;
+    if (t == g) return L;
+    return min(max((k - 1 + t * S / g + 8) & ~15, k), L);
+}
+
+// A warp takes groups of 32 >> lg reads, 1 << lg lanes a read: lane t of a
+// read ranks the k-mers of its strip of end bases (strip_cut), and the
+// lanes of a read keep the least (rank, start) by shuffles, so the first
+// start wins on ties. The winner's k-mer and strand are rebuilt once, from
+// the staged row. The grid is what the card holds at once, and each warp
+// walks its groups: while it ranks one group, L2 fetches the rows of its
+// next, so the warps' loads and their ranking overlap instead of
+// alternating in waves.
+__global__ void __launch_bounds__(kReadThreads)
+sketch_reads_kernel(const uint8_t* __restrict__ codes, int64_t L,
+                    const int64_t* __restrict__ rids, int64_t n, int k,
+                    int lg, uint32_t* __restrict__ out) {
+    extern __shared__ uint32_t smem_reads[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int g = 1 << lg, R = 32 >> lg;
+    const int stride = read_stride(L);
+    uint32_t* region = smem_reads + warp * read_region(stride) + 1;
+    const int r = lane >> lg, t = lane & (g - 1);
+    const int S = (int)L - k + 1;  // k-mer starts of a read
+    const int lo = strip_cut(t, g, S, k, (int)L);
+    const int hi = strip_cut(t + 1, g, S, k, (int)L) - 1;
+    const uint32_t* pk = region + r * stride;
+    const int warps = blockDim.x >> 5;
+    const int64_t hop = (int64_t)gridDim.x * warps * R;  // reads
+    for (int64_t first = ((int64_t)blockIdx.x * warps + warp) * R;
+         first < n; first += hop) {
+        // the rid of this lane's row in the warp's next group, loaded now
+        // and prefetched once this group is staged
+        const int64_t nx = first + hop + lane;
+        const int64_t next_rid = lane < R && nx < n ? rids[nx] : -1;
+        __syncwarp();  // the last group's rows are read
+        stage_rows(codes, L, rids, first, n, R, stride, region);
+        if (next_rid >= 0) prefetch_row(codes + next_rid * L, L);
+
+        const int64_t i = first + r;
+        uint64_t key = ~0ULL;
+        if (i < n && S > 0 && lo <= hi) {
+            if (k >= 17) {
+                key = (k & 1) ? strip_min<true, false>(pk, lo, hi, k)
+                              : strip_min<true, true>(pk, lo, hi, k);
+            } else {
+                key = (k & 1) ? strip_min<false, false>(pk, lo, hi, k)
+                              : strip_min<false, true>(pk, lo, hi, k);
+            }
+        }
+        for (int d = 1; d < g; d <<= 1) {
+            key = min(key, (uint64_t)__shfl_xor_sync(kFull, key, d));
+        }
+        if (i < n && t == 0) {
+            uint32_t khi = 0, klo = 0, meta = 0;
+            if ((uint32_t)(key >> 32) != kU32Max) {
+                const int sp = (int)(uint32_t)key;
+                const uint64_t f = kmer_at(pk, sp, k);
+                const uint64_t rc = revcomp(f, k);
+                const uint32_t z = f > rc;
+                const uint64_t canon = z ? rc : f;
+                khi = (uint32_t)(canon >> 32);
+                klo = (uint32_t)canon;
+                meta = ((uint32_t)(sp + k - 1) << 1) | z;
+            }
+            out[i] = khi;
+            out[n + i] = klo;
+            out[2 * n + i] = meta;
+        }
+    }
 }
 
 // pre[i] / suf[i]: the min (kMax: max) of x over i's segment of `seg`
@@ -452,6 +706,28 @@ void sketch_layout(int w, int* short_max, size_t* smem, int* cap_block,
     *smem = *short_max ? (block > warps ? block : warps) : block;
 }
 
+// The SM count of device dev (threads 0), or the read-minimizer blocks of
+// `threads` threads and `smem` bytes that one SM holds; minus a CUDA error.
+// Asked once per process and kept: the queries cost more host time than a
+// small call's kernel takes.
+int card_fill(int dev, int threads, size_t smem) {
+    static std::mutex mu;
+    static std::map<std::tuple<int, int, size_t>, int> known;
+    const std::lock_guard<std::mutex> lock(mu);
+    const auto key = std::make_tuple(dev, threads, smem);
+    const auto it = known.find(key);
+    if (it != known.end()) return it->second;
+    int v;
+    const cudaError_t e =
+        threads == 0
+            ? cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                  &v, sketch_reads_kernel, threads, smem);
+    if (e != cudaSuccess) return -(int)e;
+    known.emplace(key, v);
+    return v;
+}
+
 }  // namespace
 
 extern "C" {
@@ -460,14 +736,43 @@ const char* mtc_cuda_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
+// lanes: 1, 2 or 4 lanes a read, or 0 to pick by the call's size.
+int mtc_sketch_reads_lanes(const uint8_t* codes, int64_t L,
+                           const int64_t* rids, int64_t n, int k, int lanes,
+                           uint32_t* out, void* stream) {
+    if (n <= 0) return 0;
+    if (k < 1 || k > 31 || L < 1 || L > 256) return (int)cudaErrorInvalidValue;
+    int dev;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    const int sms = card_fill(dev, 0, 0);
+    if (sms < 0) return -sms;
+    int lg;
+    if (lanes == 0) {
+        const int64_t fill = kFillReads * sms;
+        lg = n >= fill ? 0 : (2 * n >= fill ? 1 : 2);
+    } else if (lanes == 1 || lanes == 2 || lanes == 4) {
+        lg = lanes >> 1;
+    } else {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int threads = lg == 0 ? kReadThreads : kSmallThreads;
+    const size_t smem =
+        4 * (size_t)(threads / 32) * read_region(read_stride(L));
+    const int per_sm = card_fill(dev, threads, smem);
+    if (per_sm < 0) return -per_sm;
+    const int64_t per_block = (int64_t)(threads / 32) * (32 >> lg);
+    const int64_t blocks = min((n + per_block - 1) / per_block,
+                               (int64_t)per_sm * sms);
+    sketch_reads_kernel<<<(unsigned)blocks, threads, smem,
+                          (cudaStream_t)stream>>>(codes, L, rids, n, k, lg,
+                                                  out);
+    return (int)cudaGetLastError();
+}
+
 int mtc_sketch_reads(const uint8_t* codes, int64_t L, const int64_t* rids,
                      int64_t n, int k, uint32_t* out, void* stream) {
-    if (n <= 0) return 0;
-    if (k < 1 || k > 31) return (int)cudaErrorInvalidValue;
-    const int64_t blocks = (n + kReadThreads - 1) / kReadThreads;
-    sketch_reads_kernel<<<(unsigned)blocks, kReadThreads, 0,
-                          (cudaStream_t)stream>>>(codes, L, rids, n, k, out);
-    return (int)cudaGetLastError();
+    return mtc_sketch_reads_lanes(codes, L, rids, n, k, 0, out, stream);
 }
 
 // out[0]: the most k-mer starts of a row that a warp takes (0: every row

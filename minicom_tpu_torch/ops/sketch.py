@@ -69,33 +69,85 @@ def _sketch_reads_plain(codes, rids, k):
     return out.to(torch.uint32)
 
 
+L_MAX = 256   # the longest read the read-minimizer kernel stages
+
+
+def _check_reads(n_rows: int, rids: np.ndarray, k: int) -> None:
+    """The read minimizer's checks, on a host rid array (no device sync):
+    ValueError for the rids' type or shape, or k; IndexError for a rid
+    outside the read store."""
+    if rids.ndim != 1 or rids.dtype.kind not in "iu":
+        raise ValueError(f"rids: want a 1-d integer array, got {rids.dtype} "
+                         f"{rids.shape}")
+    if not 1 <= k <= 31:
+        raise ValueError(f"k={k} outside [1, 31]")
+    if len(rids) and (rids.min() < 0 or rids.max() >= n_rows):
+        raise IndexError("rid outside the read store")
+
+
+def _launch_reads(codes: torch.Tensor, rids: torch.Tensor, k: int,
+                  out: torch.Tensor) -> None:
+    """One read-minimizer launch: rids (int64, on the store's device) into
+    out ([3, n] 32-bit)."""
+    cuda.require_cuda(codes)
+    if codes.shape[1] > L_MAX:
+        raise ValueError(f"reads of {codes.shape[1]} bases: the kernel "
+                         f"takes at most {L_MAX}")
+    if len(rids):
+        cuda.launch("mtc_sketch_reads", codes, codes.shape[1], rids,
+                    len(rids), k, out)
+
+
+def sketch_reads_flat(codes: torch.Tensor, rids: np.ndarray,
+                      k: int) -> np.ndarray:
+    """Whole-read canonical minimizer of the rows ``codes[rids]``, for the
+    cluster rounds: the contract of ``sketch_reads_gather`` with the rids
+    and the result as host arrays.
+
+    codes: [N, L] uint8 read store (L <= 256 on the card); rids: [n]
+    integer host array, checked here. Returns [3, n] uint32. On the card:
+    one upload of the rids from pinned memory, one launch, one download
+    into pinned memory; no other sync."""
+    cuda.check(codes, torch.uint8, 2, "codes")
+    rids = np.asarray(rids)
+    _check_reads(codes.shape[0], rids, k)
+    rids = rids.astype(np.int64, copy=False)
+    if codes.device.type == "cpu":
+        return _sketch_reads_plain(codes, torch.from_numpy(rids), k).numpy()
+    cuda.require_cuda(codes)
+    n = len(rids)
+    if n == 0:
+        return np.zeros((3, 0), np.uint32)
+    host = torch.empty(n, dtype=torch.int64, pin_memory=True)
+    host.numpy()[:] = rids
+    out = torch.empty((3, n), dtype=torch.int32, device=codes.device)
+    _launch_reads(codes, host.to(codes.device, non_blocking=True), k, out)
+    res = torch.empty((3, n), dtype=torch.int32, pin_memory=True)
+    res.copy_(out)
+    return res.numpy().view(np.uint32)
+
+
 def sketch_reads_gather(codes: torch.Tensor, rids: torch.Tensor,
                         k: int) -> torch.Tensor:
     """Whole-read canonical minimizer of the rows ``codes[rids]``.
 
-    codes: [N, L] uint8 read store (codes 0..3, N substituted); rids: [n]
-    int64. Returns [3, n] uint32: k-mer hi, k-mer lo, end_pos << 1 | strand
-    of the minimum-rank k-mer, the first on ties; all zero for a read with
-    no valid k-mer. Replaces ``sketch_reads_dyn_gather_packed``."""
+    codes: [N, L] uint8 read store (codes 0..3, N substituted; L <= 256 on
+    the card); rids: [n] int64. Returns [3, n] uint32: k-mer hi, k-mer lo,
+    end_pos << 1 | strand of the minimum-rank k-mer, the first on ties;
+    all zero for a read with no valid k-mer. Replaces
+    ``sketch_reads_dyn_gather_packed``. The rids come to the host once for
+    the checks; the pipeline calls ``sketch_reads_flat``."""
     cuda.check(codes, torch.uint8, 2, "codes")
     cuda.check(rids, torch.int64, 1, "rids")
     if rids.device != codes.device:
         raise ValueError("codes and rids on different devices")
-    if not 1 <= k <= 31:
-        raise ValueError(f"k={k} outside [1, 31]")
-    n = rids.shape[0]
-    if n:
-        lo, hi = torch.aminmax(rids)
-        if lo.item() < 0 or hi.item() >= codes.shape[0]:
-            raise IndexError("rid outside the read store")
+    _check_reads(codes.shape[0], rids.cpu().numpy(), k)
     if codes.device.type == "cpu":
         return _sketch_reads_plain(codes, rids, k)
-    cuda.require_cuda(codes)
-    out = torch.empty((3, n), dtype=torch.uint32, device=codes.device)
-    if n:
-        cuda.launch("mtc_sketch_reads", codes, codes.shape[1], rids, n, k,
-                    out)
-    return out
+    out = torch.empty((3, rids.shape[0]), dtype=torch.int32,
+                      device=codes.device)
+    _launch_reads(codes, rids, k, out)
+    return out.view(torch.uint32)
 
 
 def _sketch_windowed_plain(ref_flat, starts, lengths, Lmax, k, we, mb):

@@ -28,7 +28,7 @@ import torch
 
 from minicom_tpu_torch.config import ResolvedConfig
 from minicom_tpu_torch.ops.consensus import consensus_vote_flat
-from minicom_tpu_torch.ops.sketch import sketch_reads_gather
+from minicom_tpu_torch.ops.sketch import sketch_reads_flat
 from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.parallel.store import ShardedReadStore
 
@@ -149,16 +149,12 @@ def _sketch(pending: np.ndarray, codes_dev, k: int, L: int):
     if isinstance(codes_dev, ShardedReadStore):
         st = codes_dev
         mine = np.flatnonzero((pending >= st.r0) & (pending < st.r1))
-        out = sketch_reads_gather(
-            st.local_dev, to_device(pending[mine] - st.r0,
-                                    st.local_dev.device), k).cpu().numpy()
+        out = sketch_reads_flat(st.local_dev, pending[mine] - st.r0, k)
         idx, *got = dist.allgather_ragged_many([mine, *out])
         out = np.empty((3, len(pending)), np.uint32)
         out[:, idx] = got
     else:
-        out = sketch_reads_gather(codes_dev, to_device(pending,
-                                                       codes_dev.device),
-                                  k).cpu().numpy()
+        out = sketch_reads_flat(codes_dev, pending, k)
     khi, klo, meta = out
     pos = (meta >> 1).astype(np.int32)
     strand = (meta & 1).astype(np.int8)

@@ -20,6 +20,10 @@ hold ``{rank}``. Imports no jax. Jobs:
   ``sketch_contigs`` (k = 31, w = 19, rank cap 128, on the CPU) of the
   contigs of ``sketch_input``; saves the gathered arrays and then this
   rank's own share of them to ``out`` (an .npz).
+* {"op": "reads", "out": path}: the cluster rounds' read minimizer
+  (``cluster._sketch``) over a row-sharded store of ``reads_input``, for
+  each of its (pending, k) rounds, on the CPU; saves the (key, mpos,
+  strand) of every round to ``out`` (an .npz).
 """
 
 import datetime
@@ -108,6 +112,31 @@ def _sketch(rank, job):
     return {"entries": len(mine[0])}
 
 
+def reads_input():
+    """A read store (random reads, palindromic and one-base rows) and the
+    (pending rids, k) of two rounds: every read at k = 31, then a subset at
+    k = 24, out of order."""
+    rng = np.random.default_rng(11)
+    codes = rng.integers(0, 4, (301, 60)).astype(np.uint8)
+    codes[:5] = np.resize(np.array([0, 3], np.uint8), 60)
+    codes[5:9] = 1
+    return codes, [(np.arange(301, dtype=np.int64), 31),
+                   (rng.permutation(301)[:170].astype(np.int64), 24)]
+
+
+def _reads(rank, job):
+    from minicom_tpu_torch.parallel.store import maybe_shard
+    from minicom_tpu_torch.pipeline import cluster
+    import torch
+    codes, rounds = reads_input()
+    store = maybe_shard(codes).on_device(torch.device("cpu"))
+    out = []
+    for pending, k in rounds:
+        out.extend(cluster._sketch(pending, store, k, codes.shape[1]))
+    np.savez(job["out"].format(rank=rank), *out)
+    return {"rounds": len(rounds), "rows": store.r1 - store.r0}
+
+
 def _compress(rank, job):
     from minicom_tpu_torch import CompressorConfig, compressor
     from minicom_tpu_torch.ops import cuda
@@ -180,6 +209,8 @@ def main():
                 res = _collectives(rank, world, job["out"].format(rank=rank))
             elif job["op"] == "sketch":
                 res = _sketch(rank, job)
+            elif job["op"] == "reads":
+                res = _reads(rank, job)
             else:
                 res = _compress(rank, job)
             print("JOB " + json.dumps(res), flush=True)

@@ -6,7 +6,8 @@ card (which has no jax, so without the repo conftest):
     python -m pytest tests/test_torch_cuda.py --noconftest -q -k rans
 
 (the second: the rANS kernels alone, seconds; ``-k sketch`` and ``-k
-consensus`` take the other kernels alone).
+consensus`` take the other kernels alone, ``-k sketch_reads`` the read
+minimizer).
 """
 
 import importlib.util
@@ -24,7 +25,8 @@ from minicom_tpu_torch.ops.consensus import (TILE, consensus_vote,
 from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
                                         rans_decode_blocks,
                                         rans_encode_blocks)
-from minicom_tpu_torch.ops.sketch import (sketch_reads_gather,
+from minicom_tpu_torch.ops.sketch import (sketch_reads_flat,
+                                          sketch_reads_gather,
                                           sketch_windowed_compact32,
                                           sketch_windowed_flat)
 from minicom_tpu_torch.ops.verify import popcount_verify
@@ -51,6 +53,60 @@ def test_sketch_reads_kernel_matches_plain(dev, k):
     got = sketch_reads_gather(c.to(dev), r.to(dev), k).cpu().numpy()
     assert cuda.launches["mtc_sketch_reads"] == n0 + 1
     np.testing.assert_array_equal(got, want)
+
+
+def _reads_store(rng, n, L):
+    codes = rng.integers(0, 4, (n, L), dtype=np.uint8)
+    codes[:64] = np.resize(np.array([0, 3], np.uint8), L)   # palindromic
+    codes[64:96] = 2                                         # one base
+    return codes
+
+
+@pytest.mark.parametrize("N,L,n", [(1 << 17, 100, 1 << 17),
+                                   (1 << 15, 36, 1 << 15),
+                                   (1 << 15, 101, 1 << 15),
+                                   (1 << 15, 150, 1 << 15),
+                                   (1 << 15, 256, 1 << 15),
+                                   (1 << 17, 100, 1), (1 << 17, 100, 33),
+                                   (1 << 17, 100, 255)])
+def test_sketch_reads_entries_at_phase1_shapes(dev, N, L, n):
+    """chip_smoke's phase 1 shapes: both entries, one launch a call, equal
+    to the plain version for k in (31, 17, 4, 30)."""
+    rng = np.random.default_rng(N + L + n)
+    codes = _reads_store(rng, N, L)
+    rids = rng.permutation(N)[:n] if n == N else rng.integers(0, N, n)
+    c, r = torch.from_numpy(codes).to(dev), torch.from_numpy(rids).to(dev)
+    for k in (31, 17, 4, 30):
+        want = sketch_reads_gather(torch.from_numpy(codes),
+                                   torch.from_numpy(rids), k).numpy()
+        n0 = cuda.launches["mtc_sketch_reads"]
+        flat = sketch_reads_flat(c, rids, k)
+        assert cuda.launches["mtc_sketch_reads"] == n0 + 1
+        got = sketch_reads_gather(c, r, k).cpu().numpy()
+        assert cuda.launches["mtc_sketch_reads"] == n0 + 2
+        np.testing.assert_array_equal(flat, want)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4])
+@pytest.mark.parametrize("L", [36, 100, 101, 256])
+def test_sketch_reads_lanes_match_plain(dev, lanes, L):
+    """The kernel with 1, 2 or 4 lanes a read whatever the call's size, on
+    unaligned row starts (odd L) and a read count that leaves a warp part
+    full."""
+    rng = np.random.default_rng(lanes * 1000 + L)
+    codes = _reads_store(rng, 3001, L)
+    rids = rng.integers(0, 3001, 2999)
+    c, r = torch.from_numpy(codes).to(dev), torch.from_numpy(rids).to(dev)
+    out = torch.empty((3, len(rids)), dtype=torch.int32, device=dev)
+    for k in (31, 24, 17, 16, 4, 30, 1):
+        want = sketch_reads_gather(torch.from_numpy(codes),
+                                   torch.from_numpy(rids), k).numpy()
+        out.fill_(-1)
+        cuda.launch("mtc_sketch_reads_lanes", c, L, r, len(rids), k, lanes,
+                    out)
+        np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32),
+                                      want)
 
 
 @pytest.mark.parametrize("Lmax,k,w", [(128, 31, 19), (512, 17, 11),

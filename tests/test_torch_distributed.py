@@ -91,6 +91,11 @@ def _sketch_job(data, world):
                 out=os.path.join(data["tmp"], f"sk{world}_{{rank}}.npz"))
 
 
+def _reads_job(data, world):
+    return dict(op="reads",
+                out=os.path.join(data["tmp"], f"rd{world}_{{rank}}.npz"))
+
+
 def _mode_job(data, world, mode, **kw):
     g = data["gold"][mode]
     base = os.path.join(data["tmp"], f"g{world}_{mode}_{{rank}}")
@@ -109,7 +114,7 @@ def group2(data):
     tmp = data["tmp"]
     ck = os.path.join(tmp, "ck")
     jobs = ([dict(op="collectives", out=os.path.join(tmp, "c2_{rank}.npz")),
-             _sketch_job(data, 2)]
+             _sketch_job(data, 2), _reads_job(data, 2)]
             + [_mode_job(data, 2, m) for m in MODES]
             + [_mode_job(data, 2, "auto", out=os.path.join(tmp, "r0_{rank}.mtc"),
                          decode=os.path.join(tmp, "r0_{rank}.dec"),
@@ -131,7 +136,8 @@ def group3(data):
     tmp = data["tmp"]
     return _run_group(tmp, "g3", 3, [
         dict(op="collectives", out=os.path.join(tmp, "c3_{rank}.npz")),
-        _sketch_job(data, 3), _mode_job(data, 3, "auto")])
+        _sketch_job(data, 3), _reads_job(data, 3),
+        _mode_job(data, 3, "auto")])
 
 
 @pytest.fixture(params=[2, 3])
@@ -185,6 +191,26 @@ def test_sketch_contigs_ranks_split_the_plan(data, group):
     for i, x in enumerate(want):
         np.testing.assert_array_equal(
             np.concatenate([s[i] for s in shares]), x)
+
+
+def test_sharded_read_minimizer_equals_one_rank(data, group):
+    """The cluster rounds' read minimizer over a row-sharded store: each
+    rank sketches the pending reads it owns (one ``sketch_reads_flat`` call
+    on its slice, local rids) and every rank gets back the one-process
+    (key, mpos, strand) of each round, in pending order."""
+    from minicom_tpu_torch.pipeline import cluster
+    world = group
+    codes, rounds = worker.reads_input()
+    want = []
+    for pending, k in rounds:
+        want.extend(cluster._sketch(pending, torch.from_numpy(codes), k,
+                                    codes.shape[1]))
+    for r in range(world):
+        with np.load(os.path.join(data["tmp"], f"rd{world}_{r}.npz")) as z:
+            got = [z[f"arr_{i}"] for i in range(len(want))]
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype
+            np.testing.assert_array_equal(g, x)
 
 
 WEIGHTS = [np.array([5, 1, 1, 1, 8, 1, 1, 1, 1, 4]), np.zeros(0),

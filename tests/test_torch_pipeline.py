@@ -90,6 +90,30 @@ def test_cluster_rounds_matches_reference(stages):
     np.testing.assert_array_equal(sg, stages["sg"])
 
 
+@pytest.mark.parametrize("which", ["first", "ejected"])
+def test_round_sketch_matches_reference(stages, which):
+    """``cluster._sketch`` (one ``sketch_reads_flat`` call) gives the JAX
+    round's (key, mpos, strand): the first round over the pool at k, and
+    the second over the reads the first ejected (with a diff threshold
+    of 1, so that it ejects some of these reads), at k - 1."""
+    import jax.numpy as jnp
+    cls, cfg = stages["cls"], stages["cfg"]
+    L, k = cls.codes_sub.shape[1], cfg.k
+    codes_j = jnp.asarray(cls.codes_sub)
+    pending = np.asarray(cls.pool, np.int64)
+    if which == "ejected":
+        h, mpos, strand = jcluster._sketch(pending, codes_j, k, L)
+        pending = jcluster._one_round(codes_j, cls.codes_sub, pending, h,
+                                      mpos, strand, 1, L)[2]
+        assert len(pending)
+        k -= 1
+    want = jcluster._sketch(pending, codes_j, k, L)
+    got = tcluster._sketch(pending, torch.from_numpy(cls.codes_sub), k, L)
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype
+        np.testing.assert_array_equal(g, x)
+
+
 @pytest.mark.parametrize("revote", [True, False])
 def test_merge_matches_reference(stages, revote):
     cls, rcfg = stages["cls"], stages["rcfg"]

@@ -47,6 +47,144 @@ def test_sketch_reads_matches_reference(rng, k, L):
         assert not got[:, :6].any()
 
 
+def _reads_case(rng, N, L, n):
+    """N reads of L bases (palindromic rows 0-5, one-base rows 6-9) and n
+    rids with repeats, the special rows first."""
+    codes = rng.integers(0, 4, (N, L), dtype=np.uint8)
+    codes[:6] = np.resize(np.array([0, 3], np.uint8), L)
+    codes[6:8] = 0
+    codes[8:10] = 3
+    rids = rng.integers(0, N, n)
+    rids[:min(n, 10)] = np.arange(min(n, 10))
+    return codes, rids
+
+
+def _all_entries_equal(codes, rids, k):
+    """sketch_reads_flat == sketch_reads_gather == the JAX program == the
+    host twin; returns the result."""
+    got = tsk.sketch_reads_flat(torch.from_numpy(codes), rids, k)
+    assert got.dtype == np.uint32 and got.shape == (3, len(rids))
+    gather = tsk.sketch_reads_gather(torch.from_numpy(codes),
+                                     torch.from_numpy(rids), k).numpy()
+    np.testing.assert_array_equal(got, gather)
+    want = np.asarray(jsk.sketch_reads_dyn_gather_packed(
+        jnp.asarray(codes), jnp.asarray(rids.astype(np.int32)), k))
+    np.testing.assert_array_equal(got, want)
+    hi, lo, pos, z = native.sketch_reads_host(codes, rids, k)
+    np.testing.assert_array_equal(
+        got, np.stack([hi, lo, (pos.astype(np.uint32) << 1) | z]))
+    return got
+
+
+@pytest.mark.parametrize("L", [36, 101, 150, 256])
+@pytest.mark.parametrize("k", [4, 17, 24, 30, 31])
+def test_sketch_reads_flat_matches_reference(rng, k, L):
+    codes, rids = _reads_case(rng, 200, L, 300)
+    got = _all_entries_equal(codes, rids, k)
+    if k % 2 == 0:   # all-palindromic rows get the all-zero record
+        assert not got[:, :6].any()
+    # a one-base row: every k-mer the same, the first start wins
+    assert (got[2, 6:10] >> 1 == k - 1).all()
+
+
+@pytest.mark.parametrize("n", [0, 1])
+@pytest.mark.parametrize("k", [4, 31])
+def test_sketch_reads_flat_empty_and_single(rng, n, k):
+    codes, rids = _reads_case(rng, 40, 101, n)
+    _all_entries_equal(codes, rids.astype(np.int64), k)
+
+
+@pytest.mark.parametrize("case", ["low", "high", "float", "2d", "k0", "k32"])
+def test_sketch_reads_checks_on_the_host(case):
+    """Bad rids and k raise before the read store is touched: a store on
+    the meta device has no data to read. The tensor entry raises alike."""
+    codes = torch.empty((4, 10), dtype=torch.uint8, device="meta")
+    rids, k, err = np.array([0, 3]), 5, IndexError
+    if case == "low":
+        rids = np.array([0, -1])
+    elif case == "high":
+        rids = np.array([4, 0])
+    elif case == "float":
+        rids, err = np.array([0.0, 1.0]), ValueError
+    elif case == "2d":
+        rids, err = np.zeros((1, 2), np.int64), ValueError
+    else:
+        k, err = (0 if case == "k0" else 32), ValueError
+    with pytest.raises(err):
+        tsk.sketch_reads_flat(codes, rids, k)
+    if rids.dtype == np.int64 and rids.ndim == 1:   # the tensor entry
+        with pytest.raises(err):
+            tsk.sketch_reads_gather(torch.zeros((4, 10), dtype=torch.uint8),
+                                    torch.from_numpy(rids), k)
+
+
+def _strip_cut(t, g, S, k, L):
+    """csrc/sketch.cu::strip_cut: the first end base of lane t's strip."""
+    if t == 0:
+        return k - 1
+    if t == g:
+        return L
+    return min(max((k - 1 + t * S // g + 8) & ~15, k), L)
+
+
+def _strips(codes, rids, k, g):
+    """The kernel's split of the read minimizer, in torch: lane t of a read
+    ranks the k-mers ending at bases [cut(t), cut(t + 1)), the ends cut
+    near t / g of the way at multiples of 16, keeping its first minimum
+    (rank, start); the g lanes combine by xor butterflies of the (rank,
+    start) minimum (a lane with no k-mers holds the largest key); the
+    winner's k-mer and strand come from its start."""
+    rows = torch.from_numpy(codes)[torch.from_numpy(rids)].to(torch.int64)
+    n, L = rows.shape
+    S = L - k + 1
+    h, canon, strand, pal = tsk._kmers(rows, k)
+    h = torch.where(pal, tsk.U32_MAX, h)
+    rank = torch.full((n, g), 1 << 32, dtype=torch.int64)
+    start = torch.full((n, g), 1 << 32, dtype=torch.int64)
+    for t in range(g):
+        b0 = _strip_cut(t, g, S, k, L) - k + 1
+        e0 = _strip_cut(t + 1, g, S, k, L) - k + 1
+        if b0 >= e0:
+            continue
+        part = h[:, b0:e0]
+        j = part.argmin(dim=1)        # the first minimum of the strip
+        rank[:, t] = part.gather(1, j[:, None])[:, 0]
+        start[:, t] = j + b0
+    for d in (1, 2)[:g.bit_length() - 1]:
+        r2, s2 = rank[:, torch.arange(g) ^ d], start[:, torch.arange(g) ^ d]
+        take = (r2 < rank) | ((r2 == rank) & (s2 < start))
+        rank, start = torch.where(take, r2, rank), torch.where(take, s2, start)
+    rank, sp = rank[:, 0], start[:, 0]
+    live = rank < tsk.U32_MAX
+    sp = torch.where(live, sp, 0)
+    best = canon.gather(1, sp[:, None])[:, 0]
+    meta = ((sp + k - 1) << 1) | strand.gather(1, sp[:, None])[:, 0]
+    out = torch.stack([best >> 32, best & tsk.U32_MAX, meta])
+    return torch.where(live, out, 0).to(torch.uint32).numpy()
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("L,k", [(100, 31), (101, 24), (36, 30), (150, 4),
+                                 (33, 31), (256, 17), (40, 24)])
+def test_strip_split_and_combine_equals_plain(rng, g, L, k):
+    """Starts not divisible by g (S = 70, 78, 7, 147, 3, 240, 17; some
+    strips empty), rows whose equal ranks fall in several strips (one base
+    throughout, or a period of 4), palindromes: the strips cover every
+    start once, and their first minima combined by shuffles keep the first
+    start of the read's minimum."""
+    S = L - k + 1
+    cuts = [_strip_cut(t, g, S, k, L) for t in range(g + 1)]
+    assert cuts[0] == k - 1 and cuts[-1] == L
+    assert all(a <= b for a, b in zip(cuts, cuts[1:]))
+    assert all(c % 16 == 0 or c in (k, L) for c in cuts[1:])
+    codes, rids = _reads_case(rng, 120, L, 200)
+    codes[10:14] = np.resize(np.array([0, 1, 2, 3], np.uint8), L)
+    rids[10:14] = np.arange(10, 14)
+    want = tsk._sketch_reads_plain(torch.from_numpy(codes),
+                                   torch.from_numpy(rids), k).numpy()
+    np.testing.assert_array_equal(_strips(codes, rids, k, g), want)
+
+
 @pytest.mark.parametrize("Lmax", [128, 512, 2048])
 @pytest.mark.parametrize("k,w", [(31, 19), (17, 11), (4, 3)])
 def test_sketch_windowed_matches_reference(rng, Lmax, k, w):
