@@ -13,16 +13,16 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      replays bracketed by CUDA events), the plain versions' from events
      around single calls. The read minimizer runs both entries on 2^17
      reads x 100 at k in (31, 17, 4, 30), on 1, 33 and 255 reads, and on
-     2^15 reads of L in (36, 101, 150, 256), also with 1, 2 and 4 lanes a
-     read whatever the size. The consensus vote runs the first cluster
-     round's ejection pass of the phase-3 set as the round calls it (its
-     clusters' pointers, one launch), also against the host twin and the
-     one-cluster tensor entry. The contig sketch runs 2048 rows of each rung
-     (128 to 8192), each rung alone in the dense layout and then all four
-     as one batched call of the merge stage's entry point (one launch,
-     entries compacted on the card); its bound counts the k-mer starts the
-     rows need (a row that fills its slots stops a window past its last
-     kept entry).
+     reads of L in (36, 101, 150, 256), as many as take 1, 2 and 4 lanes a
+     read on the card (``reads_for_lanes``). The consensus vote runs the
+     first cluster round's ejection pass of the phase-3 set as the round
+     calls it (its clusters' pointers, one launch), also against the host
+     twin and the one-cluster tensor entry. The contig sketch runs 2048
+     rows of each rung (128 to 8192), each rung alone in the dense layout
+     and then all four as one batched call of the merge stage's entry
+     point (one launch, entries compacted on the card); its bound counts
+     the k-mer starts the rows need (a row that fills its slots stops a
+     window past its last kept entry).
      The rANS scans take their blocks from the streams of phase 2's archive:
      a full order-0 block (T = 8192) and a full trans2 block (T = 32768) of
      the diff text, and a dzt literal block (A = 4, k = 4) of the consensus,
@@ -194,15 +194,17 @@ INT_OPS_S = 16.75e12
 # division, a modulo or a population count taken as one operation, loads and
 # stores as none. Too few only lowers a bound, which then still holds.
 OPS = {
-    # one k-mer start of a read (k-mers of up to 62 bits lie in two words,
-    # the read's bases 16 to a word): the forward k-mer off the words (2
-    # funnel shifts, mask) 3, roll the reverse complement (rotate the new
-    # base into place, mask and or, shift, funnel shift) 4, the canonical
-    # one (64-bit compare, two selects) 4, mix32 (4 multiplies, 4 xors, 3
-    # shifts) 11, the first minimum (compare, select rank and position) 3;
-    # at even k the palindrome rule (64-bit equality, select) adds 3: odd k
-    # has no palindromes
-    "kmer_min": 25, "kmer_palindrome": 3,
+    # one k-mer start of a read, as the plain version computes it (k-mers of
+    # up to 62 bits in two words), a three-input logic operation taken as
+    # one: roll the forward k-mer (funnel shift, shift-add, mask) 3, the
+    # reverse complement (shift the complement base up, xor-or it in, shift,
+    # funnel shift) 4, the canonical one (64-bit compare, two selects) 4,
+    # mix32's xors and shifts 7, the first minimum (compare, select rank and
+    # position) 3; at even k the palindrome rule (64-bit equality, select)
+    # adds 3: odd k has no palindromes. mix32's 4 multiplies are not
+    # counted: they issue to the FMA pipe beside the integer pipe, at the
+    # same rate, so the integer pipe is the busier one
+    "kmer_min": 21, "kmer_palindrome": 3,
     # one k-mer start of a contig row: roll the forward k-mer 4, the reverse
     # complement 5, the canonical one 4, the palindrome rule 3, mix32 11,
     # in the row (add, compare) 2, the window minimum and the covering
@@ -263,8 +265,7 @@ def _reads_store(rng, n, L):
 
 def _check_reads(dev, tag, codes, c, rids, ks) -> int:
     """Both entries of the read minimizer on the card (one launch each)
-    against the plain version and the host twin, for each k, and the kernel
-    with 1, 2 and 4 lanes a read against the plain version; returns the
+    against the plain version and the host twin, for each k; returns the
     max |diff| (0)."""
     r = torch.from_numpy(rids).to(dev)
     err = 0
@@ -278,23 +279,33 @@ def _check_reads(dev, tag, codes, c, rids, ks) -> int:
         hi, lo, pos, z = native.sketch_reads_host(codes, rids, k)
         err = max(err, _equal(f"{tag} k={k} flat vs plain", flat, plain),
                   _equal(f"{tag} k={k} gather vs plain", got, plain))
-        out = torch.empty((3, len(rids)), dtype=torch.int32, device=dev)
-        for lanes in (1, 2, 4):   # every split of a read, whatever the size
-            cuda.launch("mtc_sketch_reads_lanes", c, c.shape[1], r,
-                        len(rids), k, lanes, out)
-            err = max(err, _equal(f"{tag} k={k} {lanes} lanes a read",
-                                  out.cpu().numpy().view(np.uint32), plain))
         _equal(f"{tag} k={k} vs host", flat,
                np.stack([hi, lo, (pos.astype(np.uint32) << 1) | z]))
     return err
 
 
+# kFillReads of csrc/sketch.cu: a call of at least this many reads an SM
+# takes one lane a read, one of at least half of it two, a smaller one four
+READ_FILL = 256
+
+
+def reads_for_lanes(dev) -> dict:
+    """A read count that the kernel's rule gives 1, 2 or 4 lanes a read on
+    dev; the one-lane count is past what the card holds at once (at most
+    2048 threads an SM), so that warps walk several groups of reads."""
+    fill = READ_FILL * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+    return {1: 8 * fill + 33, 2: fill - 1, 4: fill // 2 - 1}
+
+
 def phase1_sketch_reads(dev, report):
     """The read minimizer: 2^17 reads x 100 (a permutation of the store,
-    the first cluster round's shape) at k in (31, 17, 4, 30), then 2^15
-    reads (rids with repeats) of L in (36, 101, 150, 256), and 1, 33, 255
-    reads of the first store; both entries against the plain version and
-    the host twin. The 2^17 set at k = 31 is timed from CUDA graphs."""
+    the first cluster round's shape) at k in (31, 17, 4, 30); 1, 33 and 255
+    reads of that store; then stores of L in (36, 101, 150, 256) (odd L and
+    L = 150 put row starts off 4-byte alignment), each with the read
+    counts that take 1, 2 and 4 lanes a read (rids with repeats). Both
+    entries against the plain version and the host twin. The 2^17 set at
+    k = 31 is timed from CUDA graphs."""
     rng = np.random.default_rng(1)
     ks = (31, 17, 4, 30)
     n, L = 1 << 17, 100
@@ -305,13 +316,15 @@ def phase1_sketch_reads(dev, report):
     for m in (1, 33, 255):
         err = max(err, _check_reads(dev, f"sketch_reads {m} x {L}", codes,
                                     c, rng.integers(0, n, m), ks))
+    sizes = reads_for_lanes(dev)
     for Lx in (36, 101, 150, 256):
         cx = _reads_store(rng, 1 << 15, Lx)
-        err = max(err, _check_reads(
-            dev, f"sketch_reads {1 << 15} x {Lx}", cx,
-            torch.from_numpy(cx).to(dev), rng.integers(0, 1 << 15, 1 << 15),
-            ks))
-    r = torch.from_numpy(rids).to(dev)
+        dx = torch.from_numpy(cx).to(dev)
+        for lanes, m in sizes.items():
+            err = max(err, _check_reads(
+                dev, f"sketch_reads {m} x {Lx} ({lanes} lanes a read)", cx,
+                dx, rng.integers(0, 1 << 15, m), ks))
+    r = torch.from_numpy(rids.astype(np.int32)).to(dev)
     out = torch.empty((3, n), dtype=torch.int32, device=dev)
     ms = _graph_ms(lambda: cuda.launch("mtc_sketch_reads", c, L, r, n, 31,
                                        out))
@@ -319,7 +332,8 @@ def phase1_sketch_reads(dev, report):
     print(f"[1] sketch_reads {n} x {L} k=31: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.3f} ms; flat and gather entries equal to plain and "
           f"host for k in {ks} at {n} x {L}, 1, 33 and 255 reads, and "
-          f"{1 << 15} reads of L in (36, 101, 150, 256)")
+          f"{sorted(sizes.values())} reads (1, 2, 4 lanes a read) of L in "
+          f"(36, 101, 150, 256)")
     report["mtc_sketch_reads"] = dict(
         name="sketch_reads_flat", route="cuda",
         source="minicom_tpu_torch/csrc/sketch.cu",
@@ -983,7 +997,7 @@ class _ReadSketchCalls:
             starts = n * max(L - k + 1, 0)
             self.calls.append(dict(
                 reads=n, k=k, starts=starts, ops=starts * kmer_min_ops(k),
-                bytes=n * (L + 8 + 12),
+                bytes=n * (L + 4 + 12),   # a row, its int32 rid, 3 words
                 launches=cuda.launches["mtc_sketch_reads"] - n0, wall_s=wall,
                 events=self.timer.events[e0:] if self.timer else []))
             return out

@@ -37,7 +37,8 @@
 //  - the grid is what the card holds at once: each warp walks its groups of
 //    reads and has L2 prefetch the next group's rows while it ranks this
 //    one, so loads and ranking overlap instead of alternating in waves.
-// Bound: the integer operations of the ranks (about 25 a k-mer start); the
+// Bound: the ranks' operations on the integer pipe (21 a k-mer start at odd
+// k, 24 at even; mix32's 4 multiplies issue to the FMA pipe beside it); the
 // rows are read once, coalesced; no intermediate touches device memory.
 //
 // mtc_sketch_windowed replaces minicom_tpu/ops/pallas_sketch.py::_sketch_kernel
@@ -218,7 +219,7 @@ __device__ __forceinline__ uint32_t pack16(uint4 v) {
 // are issued before any of them is packed.
 __device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ codes,
                                            int64_t L,
-                                           const int64_t* __restrict__ rids,
+                                           const int32_t* __restrict__ rids,
                                            int64_t first, int64_t n, int R,
                                            int stride, uint32_t* region) {
     const int lane = threadIdx.x & 31;
@@ -234,7 +235,8 @@ __device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ codes,
             v[u] = make_uint4(0u, 0u, 0u, 0u);
             sh[u] = 0;
             if (r < R && first + r < n) {
-                const uintptr_t a = (uintptr_t)(codes + rids[first + r] * L);
+                const uintptr_t a =
+                    (uintptr_t)(codes + (int64_t)rids[first + r] * L);
                 sh[u] = (int)(a & 15);
                 // a chunk that holds at least one base of the row: within
                 // the store's allocation (aligned to 256 bytes or more)
@@ -370,7 +372,7 @@ __device__ __forceinline__ int strip_cut(int t, int g, int S, int k, int L) {
 // alternating in waves.
 __global__ void __launch_bounds__(kReadThreads)
 sketch_reads_kernel(const uint8_t* __restrict__ codes, int64_t L,
-                    const int64_t* __restrict__ rids, int64_t n, int k,
+                    const int32_t* __restrict__ rids, int64_t n, int k,
                     int lg, uint32_t* __restrict__ out) {
     extern __shared__ uint32_t smem_reads[];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -389,10 +391,10 @@ sketch_reads_kernel(const uint8_t* __restrict__ codes, int64_t L,
         // the rid of this lane's row in the warp's next group, loaded now
         // and prefetched once this group is staged
         const int64_t nx = first + hop + lane;
-        const int64_t next_rid = lane < R && nx < n ? rids[nx] : -1;
+        const int32_t next_rid = lane < R && nx < n ? rids[nx] : -1;
         __syncwarp();  // the last group's rows are read
         stage_rows(codes, L, rids, first, n, R, stride, region);
-        if (next_rid >= 0) prefetch_row(codes + next_rid * L, L);
+        if (next_rid >= 0) prefetch_row(codes + (int64_t)next_rid * L, L);
 
         const int64_t i = first + r;
         uint64_t key = ~0ULL;
@@ -736,10 +738,10 @@ const char* mtc_cuda_error_string(int err) {
     return cudaGetErrorString((cudaError_t)err);
 }
 
-// lanes: 1, 2 or 4 lanes a read, or 0 to pick by the call's size.
-int mtc_sketch_reads_lanes(const uint8_t* codes, int64_t L,
-                           const int64_t* rids, int64_t n, int k, int lanes,
-                           uint32_t* out, void* stream) {
+// rids: [n] int32 rows of codes ([N, L] uint8); out: [3, n]. The lanes a
+// read follow from n (kFillReads).
+int mtc_sketch_reads(const uint8_t* codes, int64_t L, const int32_t* rids,
+                     int64_t n, int k, uint32_t* out, void* stream) {
     if (n <= 0) return 0;
     if (k < 1 || k > 31 || L < 1 || L > 256) return (int)cudaErrorInvalidValue;
     int dev;
@@ -747,15 +749,8 @@ int mtc_sketch_reads_lanes(const uint8_t* codes, int64_t L,
     if (e != cudaSuccess) return (int)e;
     const int sms = card_fill(dev, 0, 0);
     if (sms < 0) return -sms;
-    int lg;
-    if (lanes == 0) {
-        const int64_t fill = kFillReads * sms;
-        lg = n >= fill ? 0 : (2 * n >= fill ? 1 : 2);
-    } else if (lanes == 1 || lanes == 2 || lanes == 4) {
-        lg = lanes >> 1;
-    } else {
-        return (int)cudaErrorInvalidValue;
-    }
+    const int64_t fill = kFillReads * sms;
+    const int lg = n >= fill ? 0 : (2 * n >= fill ? 1 : 2);
     const int threads = lg == 0 ? kReadThreads : kSmallThreads;
     const size_t smem =
         4 * (size_t)(threads / 32) * read_region(read_stride(L));
@@ -768,11 +763,6 @@ int mtc_sketch_reads_lanes(const uint8_t* codes, int64_t L,
                           (cudaStream_t)stream>>>(codes, L, rids, n, k, lg,
                                                   out);
     return (int)cudaGetLastError();
-}
-
-int mtc_sketch_reads(const uint8_t* codes, int64_t L, const int64_t* rids,
-                     int64_t n, int k, uint32_t* out, void* stream) {
-    return mtc_sketch_reads_lanes(codes, L, rids, n, k, 0, out, stream);
 }
 
 // out[0]: the most k-mer starts of a row that a warp takes (0: every row

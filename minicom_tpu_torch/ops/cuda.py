@@ -31,7 +31,6 @@ _launches_lock = threading.Lock()
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGS = {
     "mtc_sketch_reads": [_P, _I64, _P, _I64, _INT, _P, _P],
-    "mtc_sketch_reads_lanes": [_P, _I64, _P, _I64, _INT, _INT, _P, _P],
     "mtc_sketch_windowed": [_P, _P, _P, _I64, _INT, _INT, _P, _P, _P, _P,
                             _P, _P],
     "mtc_consensus_vote": [_P, _INT, _P, _I64, _I64, _INT, _INT, _P, _P, _P],

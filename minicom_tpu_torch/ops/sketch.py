@@ -70,32 +70,31 @@ def _sketch_reads_plain(codes, rids, k):
 
 
 L_MAX = 256   # the longest read the read-minimizer kernel stages
+RID_MAX = (1 << 31) - 1   # the kernel takes int32 rids
+# rids from which the host's pass over them (the range check, the int32
+# copy) runs on every core: below it, waking the threads costs more
+HOST_PARALLEL = 1 << 17
 
 
-def _check_reads(n_rows: int, rids: np.ndarray, k: int) -> None:
+def _check_reads(n_rows: int, rids: np.ndarray, k: int) -> np.ndarray:
     """The read minimizer's checks, on a host rid array (no device sync):
     ValueError for the rids' type or shape, or k; IndexError for a rid
-    outside the read store."""
+    outside the read store. Returns the rids as int32 or int64, without a
+    copy where they are one of those."""
     if rids.ndim != 1 or rids.dtype.kind not in "iu":
         raise ValueError(f"rids: want a 1-d integer array, got {rids.dtype} "
                          f"{rids.shape}")
     if not 1 <= k <= 31:
         raise ValueError(f"k={k} outside [1, 31]")
-    if len(rids) and (rids.min() < 0 or rids.max() >= n_rows):
-        raise IndexError("rid outside the read store")
-
-
-def _launch_reads(codes: torch.Tensor, rids: torch.Tensor, k: int,
-                  out: torch.Tensor) -> None:
-    """One read-minimizer launch: rids (int64, on the store's device) into
-    out ([3, n] 32-bit)."""
-    cuda.require_cuda(codes)
-    if codes.shape[1] > L_MAX:
-        raise ValueError(f"reads of {codes.shape[1]} bases: the kernel "
-                         f"takes at most {L_MAX}")
+    if rids.dtype not in (np.int32, np.int64):
+        rids = rids.astype(np.int64)
+    rids = np.ascontiguousarray(rids)
     if len(rids):
-        cuda.launch("mtc_sketch_reads", codes, codes.shape[1], rids,
-                    len(rids), k, out)
+        lo, hi = (torch.aminmax(torch.from_numpy(rids))
+                  if len(rids) >= HOST_PARALLEL else (rids.min(), rids.max()))
+        if lo < 0 or hi >= n_rows:
+            raise IndexError("rid outside the read store")
+    return rids
 
 
 def sketch_reads_flat(codes: torch.Tensor, rids: np.ndarray,
@@ -104,25 +103,34 @@ def sketch_reads_flat(codes: torch.Tensor, rids: np.ndarray,
     cluster rounds: the contract of ``sketch_reads_gather`` with the rids
     and the result as host arrays.
 
-    codes: [N, L] uint8 read store (L <= 256 on the card); rids: [n]
-    integer host array, checked here. Returns [3, n] uint32. On the card:
-    one upload of the rids from pinned memory, one launch, one download
-    into pinned memory; no other sync."""
+    codes: [N, L] uint8 read store (on the card L <= 256 and N <= 2^31 -
+    1); rids: [n] integer host array, checked here. Returns [3, n] uint32.
+    On the card, through one pinned buffer of 3n words: the rids go up as
+    int32 in one copy, one launch, the result comes down in one copy into
+    the same buffer (the copies and the launch are ordered on one stream);
+    no other sync."""
     cuda.check(codes, torch.uint8, 2, "codes")
-    rids = np.asarray(rids)
-    _check_reads(codes.shape[0], rids, k)
-    rids = rids.astype(np.int64, copy=False)
+    rids = _check_reads(codes.shape[0], np.asarray(rids), k)
     if codes.device.type == "cpu":
-        return _sketch_reads_plain(codes, torch.from_numpy(rids), k).numpy()
+        return _sketch_reads_plain(codes, torch.from_numpy(rids).to(
+            torch.int64), k).numpy()
+    N, L = codes.shape
+    if L > L_MAX or N > RID_MAX:
+        raise ValueError(f"a store of {N} reads of {L} bases: the kernel "
+                         f"takes at most {RID_MAX} of {L_MAX}")
     cuda.require_cuda(codes)
     n = len(rids)
     if n == 0:
         return np.zeros((3, 0), np.uint32)
-    host = torch.empty(n, dtype=torch.int64, pin_memory=True)
-    host.numpy()[:] = rids
+    buf = torch.empty(3 * n, dtype=torch.int32, pin_memory=True)
+    if n >= HOST_PARALLEL:
+        buf[:n].copy_(torch.from_numpy(rids))
+    else:
+        np.copyto(buf.numpy()[:n], rids, casting="unsafe")
     out = torch.empty((3, n), dtype=torch.int32, device=codes.device)
-    _launch_reads(codes, host.to(codes.device, non_blocking=True), k, out)
-    res = torch.empty((3, n), dtype=torch.int32, pin_memory=True)
+    cuda.launch("mtc_sketch_reads", codes, L,
+                buf[:n].to(codes.device, non_blocking=True), n, k, out)
+    res = buf.view(3, n)
     res.copy_(out)
     return res.numpy().view(np.uint32)
 
@@ -131,23 +139,18 @@ def sketch_reads_gather(codes: torch.Tensor, rids: torch.Tensor,
                         k: int) -> torch.Tensor:
     """Whole-read canonical minimizer of the rows ``codes[rids]``.
 
-    codes: [N, L] uint8 read store (codes 0..3, N substituted; L <= 256 on
-    the card); rids: [n] int64. Returns [3, n] uint32: k-mer hi, k-mer lo,
+    codes: [N, L] uint8 read store (codes 0..3, N substituted); rids: [n]
+    int64. Returns [3, n] uint32 on the store's device: k-mer hi, k-mer lo,
     end_pos << 1 | strand of the minimum-rank k-mer, the first on ties;
     all zero for a read with no valid k-mer. Replaces
-    ``sketch_reads_dyn_gather_packed``. The rids come to the host once for
-    the checks; the pipeline calls ``sketch_reads_flat``."""
+    ``sketch_reads_dyn_gather_packed``. ``sketch_reads_flat`` on the rids
+    brought to the host, its result taken back to the store's device."""
     cuda.check(codes, torch.uint8, 2, "codes")
     cuda.check(rids, torch.int64, 1, "rids")
     if rids.device != codes.device:
         raise ValueError("codes and rids on different devices")
-    _check_reads(codes.shape[0], rids.cpu().numpy(), k)
-    if codes.device.type == "cpu":
-        return _sketch_reads_plain(codes, rids, k)
-    out = torch.empty((3, rids.shape[0]), dtype=torch.int32,
-                      device=codes.device)
-    _launch_reads(codes, rids, k, out)
-    return out.view(torch.uint32)
+    out = sketch_reads_flat(codes, rids.cpu().numpy(), k)
+    return torch.from_numpy(out).to(codes.device)
 
 
 def _sketch_windowed_plain(ref_flat, starts, lengths, Lmax, k, we, mb):

@@ -29,21 +29,27 @@ device read store. Variants are text edits of the shipped source:
               results)
 
 and any NAME=PATH given: another sketch.cu with the same entry point
-(the parent commit's, say). Every variant that computes the function is
-held equal to ``shipped`` on every call, and ``shipped`` to the plain
-version. Also replays each recorded call's host path both ways, in turns:
-the flat entry as the rounds call it now, and the earlier path
-(an upload of the rids from pageable memory, a range check by
-``aminmax`` and two ``.item()`` syncs, the launch, ``.cpu().numpy()``).
-Prints per call its reads, k and each variant's ms; the last line is the
-JSON of each variant's phase-1 ms, summed ms over the calls, the bound of
-the calls' work and each sum's share of it. Any failure ends the run with
-a traceback and a non-zero exit.
+(the parent commit's, say), its rids int32 or int64 as that entry
+declares them. Every variant that computes the function is held equal to
+``shipped`` on every call, and ``shipped`` to the plain version. Also
+replays each recorded call's host path both ways, in turns: the flat
+entry as the rounds call it now, and the earlier path (an upload of the
+int64 rids from pageable memory, a range check by ``aminmax`` on the card
+and two ``.item()`` syncs, their cast to int32 on the card, the launch,
+``.cpu().numpy()``); warm (the pinned buffers of the flat entry cached by
+PyTorch's host allocator, as in every call but the first of a size) and
+cold (that cache emptied before each turn, as in a process's first
+compress). Prints per call its reads, k and each variant's ms; the last
+line is the JSON of each variant's phase-1 ms, summed ms over the calls,
+the bound of the calls' work and each sum's share of it, and the calls'
+host walls. Any failure ends the run with a traceback and a non-zero
+exit.
 """
 
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -65,7 +71,8 @@ ENTRY = "mtc_sketch_reads"
 RULE = "lg = n >= fill ? 0 : (2 * n >= fill ? 1 : 2);"
 FILL = "kFillReads = 256;"
 STEP = "if (i < n && S > 0 && lo <= hi) {"
-PREFETCH = "if (next_rid >= 0) prefetch_row(codes + next_rid * L, L);"
+PREFETCH = ("if (next_rid >= 0) prefetch_row(codes + (int64_t)next_rid "
+            "* L, L);")
 # name: (edits of the shipped source, computes the function)
 VARIANTS = {
     "shipped": ([], True),
@@ -86,10 +93,17 @@ VARIANTS = {
 }
 
 
+def rid_type(src: str):
+    """The numpy type of the rids that the entry point in src takes."""
+    entry = re.search(r"int mtc_sketch_reads\(([^)]*)\)", src).group(1)
+    return np.int32 if "int32_t* rids" in entry else np.int64
+
+
 def build(variants, out_dir):
     """One shared library a variant, all nvcc runs at once; returns each
-    one's entry point. Prints the registers and spills ptxas reports."""
-    procs = {}
+    one's (entry point, rid type). Prints the registers and spills ptxas
+    reports."""
+    procs, rid_types = {}, {}
     for name, (path, edits) in variants.items():
         with open(path) as f:
             src = f.read()
@@ -97,6 +111,7 @@ def build(variants, out_dir):
             if src.count(old) != 1:
                 raise AssertionError(f"{name}: {old!r} not once in {path}")
             src = src.replace(old, new)
+        rid_types[name] = rid_type(src)
         cu = os.path.join(out_dir, f"{name}.cu")
         with open(cu, "w") as f:
             f.write(src)
@@ -120,7 +135,7 @@ def build(variants, out_dir):
         fn = getattr(lib, ENTRY)
         fn.restype = ctypes.c_int
         fn.argtypes = cuda._SIGS[ENTRY]
-        fns[name] = fn
+        fns[name] = fn, rid_types[name]
     return fns
 
 
@@ -151,20 +166,23 @@ def record_calls(dev, n, tmp):
 
 def earlier_path(codes, rids, k):
     """The host path of the read minimizer before ``sketch_reads_flat``:
-    rids up from pageable memory, checked on the card with two syncs, one
-    launch, the result down with ``.cpu().numpy()``."""
+    int64 rids up from pageable memory, checked on the card with two syncs,
+    cast to the kernel's int32 there, one launch, the result down with
+    ``.cpu().numpy()``."""
     r = torch.from_numpy(np.ascontiguousarray(rids)).to(codes.device)
     lo, hi = torch.aminmax(r)
     if lo.item() < 0 or hi.item() >= codes.shape[0]:
         raise IndexError("rid outside the read store")
     out = torch.empty((3, len(rids)), dtype=torch.int32, device=codes.device)
-    cuda.launch(ENTRY, codes, codes.shape[1], r, len(rids), k, out)
+    cuda.launch(ENTRY, codes, codes.shape[1], r.to(torch.int32), len(rids),
+                k, out)
     return out.cpu().numpy().view(np.uint32)
 
 
-def host_walls(calls, reps=3):
+def host_walls(calls, cold, reps=3):
     """Median host wall s of each call's path, both ways in turns: (flat,
-    earlier) per call."""
+    earlier) per call; cold: a function that empties PyTorch's cache of
+    pinned host blocks, called before each turn."""
     out = []
     for codes, rids, k, _ in calls:
         t = {"flat": [], "earlier": []}
@@ -172,6 +190,9 @@ def host_walls(calls, reps=3):
             for way in ("earlier", "flat", "flat", "earlier"):
                 fn = sketch.sketch_reads_flat if way == "flat" \
                     else earlier_path
+                torch.cuda.synchronize()
+                if cold:
+                    cold()
                 t0 = time.perf_counter()
                 fn(codes, rids, k)
                 t[way].append(time.perf_counter() - t0)
@@ -209,10 +230,13 @@ def main() -> int:
         bound_ms = 0.0
         for i, (codes, rids, k, wall) in enumerate(work, start=-1):
             m, L = len(rids), codes.shape[1]
-            r = torch.from_numpy(rids).to(dev)
+            r_of = {t: torch.from_numpy(rids.astype(t)).to(dev)
+                    for t in (np.int32, np.int64)}
             out = torch.empty((3, m), dtype=torch.int32, device=dev)
             want, row = None, {}
-            for name, fn in fns.items():
+            for name, (fn, rt) in fns.items():
+                r = r_of[rt]
+
                 def launch():
                     err = fn(codes.data_ptr(), L, r.data_ptr(), m, k,
                              out.data_ptr(),
@@ -236,7 +260,7 @@ def main() -> int:
                     phase1[name] = row[name]
                 else:
                     totals[name] += row[name]
-            b = chip_smoke._bound(m * (L + 8 + 12),
+            b = chip_smoke._bound(m * (L + 4 + 12),
                                   m * max(L - k + 1, 0)
                                   * chip_smoke.kmer_min_ops(k))
             if i >= 0:
@@ -246,17 +270,28 @@ def main() -> int:
                   + ("" if wall is None else f", host wall {wall:.5f} s")
                   + ": " + json.dumps({x: round(v, 5)
                                        for x, v in row.items()}))
-        walls = host_walls(calls)
-        for i, (flat, early) in enumerate(walls):
-            print(f"[minimizer] call {i}: host wall, median of 6 in turns: "
-                  f"flat entry {flat:.5f} s, earlier path {early:.5f} s")
+        # the name of the call that empties the cache differs by version
+        empty = (getattr(torch._C, "_host_emptyCache", None)
+                 or getattr(torch._C, "_accelerator_emptyHostCache", None))
+        walls = {"warm": host_walls(calls, None)}
+        if empty:
+            walls["cold"] = host_walls(calls, empty)
+        else:
+            print("[minimizer] no call empties the pinned host cache: cold "
+                  "walls not measured")
+        for how, w in walls.items():
+            for i, (flat, early) in enumerate(w):
+                print(f"[minimizer] call {i}: host wall {how}, median of 6 "
+                      f"in turns: flat entry {flat:.5f} s, earlier path "
+                      f"{early:.5f} s")
     print(json.dumps({
         "phase1_ms": phase1, "calls": len(calls), "calls_ms": totals,
         "calls_bound_ms": bound_ms,
         "share_of_bound": {x: bound_ms / v for x, v in totals.items()},
         "host_wall_s": {"in_compress": sum(c[3] for c in calls),
-                        "flat": sum(w[0] for w in walls),
-                        "earlier": sum(w[1] for w in walls)}}))
+                        **{f"{way}_{how}": sum(x[j] for x in w)
+                           for how, w in walls.items()
+                           for j, way in enumerate(("flat", "earlier"))}}}))
     return 0
 
 

@@ -25,7 +25,8 @@ from minicom_tpu_torch.ops.consensus import (TILE, consensus_vote,
 from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
                                         rans_decode_blocks,
                                         rans_encode_blocks)
-from minicom_tpu_torch.ops.sketch import (sketch_reads_flat,
+from minicom_tpu_torch.ops.sketch import (_sketch_reads_plain,
+                                          sketch_reads_flat,
                                           sketch_reads_gather,
                                           sketch_windowed_compact32,
                                           sketch_windowed_flat)
@@ -62,51 +63,54 @@ def _reads_store(rng, n, L):
     return codes
 
 
+def _entries_equal_plain(c, rids, k):
+    """Both entries on the card, one launch each, equal to the plain
+    version on the card's tensors."""
+    r = torch.from_numpy(rids).to(c.device)
+    want = _sketch_reads_plain(c, r, k).cpu().numpy()
+    n0 = cuda.launches["mtc_sketch_reads"]
+    flat = sketch_reads_flat(c, rids, k)
+    assert cuda.launches["mtc_sketch_reads"] == n0 + 1
+    got = sketch_reads_gather(c, r, k).cpu().numpy()
+    assert cuda.launches["mtc_sketch_reads"] == n0 + 2
+    np.testing.assert_array_equal(flat, want)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("N,L,n", [(1 << 17, 100, 1 << 17),
-                                   (1 << 15, 36, 1 << 15),
-                                   (1 << 15, 101, 1 << 15),
-                                   (1 << 15, 150, 1 << 15),
-                                   (1 << 15, 256, 1 << 15),
                                    (1 << 17, 100, 1), (1 << 17, 100, 33),
                                    (1 << 17, 100, 255)])
 def test_sketch_reads_entries_at_phase1_shapes(dev, N, L, n):
-    """chip_smoke's phase 1 shapes: both entries, one launch a call, equal
-    to the plain version for k in (31, 17, 4, 30)."""
+    """chip_smoke's phase 1 shapes at L = 100: both entries, one launch a
+    call, equal to the plain version for k in (31, 17, 4, 30)."""
     rng = np.random.default_rng(N + L + n)
     codes = _reads_store(rng, N, L)
     rids = rng.permutation(N)[:n] if n == N else rng.integers(0, N, n)
-    c, r = torch.from_numpy(codes).to(dev), torch.from_numpy(rids).to(dev)
+    c = torch.from_numpy(codes).to(dev)
     for k in (31, 17, 4, 30):
-        want = sketch_reads_gather(torch.from_numpy(codes),
-                                   torch.from_numpy(rids), k).numpy()
-        n0 = cuda.launches["mtc_sketch_reads"]
-        flat = sketch_reads_flat(c, rids, k)
-        assert cuda.launches["mtc_sketch_reads"] == n0 + 1
-        got = sketch_reads_gather(c, r, k).cpu().numpy()
-        assert cuda.launches["mtc_sketch_reads"] == n0 + 2
-        np.testing.assert_array_equal(flat, want)
-        np.testing.assert_array_equal(got, want)
+        _entries_equal_plain(c, rids, k)
+
+
+def _reads_for_lanes(dev):
+    """chip_smoke.reads_for_lanes: read counts that the kernel's rule
+    (kFillReads = 256 reads an SM) gives 1, 2 and 4 lanes a read, the first
+    past what the card holds at once."""
+    fill = 256 * torch.cuda.get_device_properties(dev).multi_processor_count
+    return {1: 8 * fill + 33, 2: fill - 1, 4: fill // 2 - 1}
 
 
 @pytest.mark.parametrize("lanes", [1, 2, 4])
-@pytest.mark.parametrize("L", [36, 100, 101, 256])
+@pytest.mark.parametrize("L", [36, 100, 101, 150, 256])
 def test_sketch_reads_lanes_match_plain(dev, lanes, L):
-    """The kernel with 1, 2 or 4 lanes a read whatever the call's size, on
-    unaligned row starts (odd L) and a read count that leaves a warp part
-    full."""
+    """As many reads as the kernel gives 1, 2 or 4 lanes a read, on row
+    starts off 4-byte alignment (odd L, L = 150) and read counts that leave
+    a warp part full."""
     rng = np.random.default_rng(lanes * 1000 + L)
     codes = _reads_store(rng, 3001, L)
-    rids = rng.integers(0, 3001, 2999)
-    c, r = torch.from_numpy(codes).to(dev), torch.from_numpy(rids).to(dev)
-    out = torch.empty((3, len(rids)), dtype=torch.int32, device=dev)
+    rids = rng.integers(0, 3001, _reads_for_lanes(dev)[lanes])
+    c = torch.from_numpy(codes).to(dev)
     for k in (31, 24, 17, 16, 4, 30, 1):
-        want = sketch_reads_gather(torch.from_numpy(codes),
-                                   torch.from_numpy(rids), k).numpy()
-        out.fill_(-1)
-        cuda.launch("mtc_sketch_reads_lanes", c, L, r, len(rids), k, lanes,
-                    out)
-        np.testing.assert_array_equal(out.cpu().numpy().view(np.uint32),
-                                      want)
+        _entries_equal_plain(c, rids, k)
 
 
 @pytest.mark.parametrize("Lmax,k,w", [(128, 31, 19), (512, 17, 11),

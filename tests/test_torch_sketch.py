@@ -94,13 +94,18 @@ def test_sketch_reads_flat_empty_and_single(rng, n, k):
     _all_entries_equal(codes, rids.astype(np.int64), k)
 
 
-@pytest.mark.parametrize("case", ["low", "high", "float", "2d", "k0", "k32"])
+@pytest.mark.parametrize("case", ["low", "high", "float", "2d", "k0", "k32",
+                                  "low_many", "high_many"])
 def test_sketch_reads_checks_on_the_host(case):
     """Bad rids and k raise before the read store is touched: a store on
-    the meta device has no data to read. The tensor entry raises alike."""
+    the meta device has no data to read. The tensor entry raises alike.
+    "_many": as many rids as take the check on every core."""
     codes = torch.empty((4, 10), dtype=torch.uint8, device="meta")
     rids, k, err = np.array([0, 3]), 5, IndexError
-    if case == "low":
+    if case.endswith("_many"):
+        rids = np.resize(np.arange(4), tsk.HOST_PARALLEL)
+        rids[-1] = -1 if case == "low_many" else 4
+    elif case == "low":
         rids = np.array([0, -1])
     elif case == "high":
         rids = np.array([4, 0])
@@ -116,6 +121,27 @@ def test_sketch_reads_checks_on_the_host(case):
         with pytest.raises(err):
             tsk.sketch_reads_gather(torch.zeros((4, 10), dtype=torch.uint8),
                                     torch.from_numpy(rids), k)
+
+
+def test_sketch_reads_flat_many_rids(rng):
+    """As many rids as take the host's checks on every core: the flat
+    entry == the host twin."""
+    codes, _ = _reads_case(rng, 50, 36, 0)
+    rids = rng.integers(0, 50, tsk.HOST_PARALLEL).astype(np.int32)
+    got = tsk.sketch_reads_flat(torch.from_numpy(codes), rids, 17)
+    hi, lo, pos, z = native.sketch_reads_host(codes, rids.astype(np.int64),
+                                              17)
+    np.testing.assert_array_equal(
+        got, np.stack([hi, lo, (pos.astype(np.uint32) << 1) | z]))
+
+
+@pytest.mark.parametrize("N,L", [(1 << 31, 10), (4, 257)])
+def test_sketch_reads_store_limits_on_the_host(N, L):
+    """A store the kernel cannot take (more rows than int32 rids reach, or
+    reads longer than it stages) raises before anything touches it."""
+    codes = torch.empty((N, L), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="the kernel takes at most"):
+        tsk.sketch_reads_flat(codes, np.array([0, 3]), 5)
 
 
 def _strip_cut(t, g, S, k, L):
