@@ -66,11 +66,14 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
   4. realign verify: on the 100,000-read set, the popcount verify kernel
      recomputes the mismatch count of every placement the host realign probe
      chose at the first threshold, and must agree with it.
-  5. resume: at 100,000 reads with a checkpoint dir, compress, delete the
-     merge and realign snapshots, compress again: the second run resumes
-     from the cluster snapshot, launches the merge kernels (the contig
-     sketch and the re-vote) and not the read minimizer, and writes the
-     same archive.
+  5. trace and resume: at 100,000 reads, a compress without MTC_TRACE_DIR
+     and two with it: each archive must equal phase 3's, and each trace
+     (torch.profiler) must hold device events of the read minimizer, the
+     vote and the contig sketch. Then, with a checkpoint dir, compress,
+     delete the merge and realign snapshots, compress again: the second
+     run resumes from the cluster snapshot, launches the merge kernels (the
+     contig sketch and the re-vote) and not the read minimizer, and writes
+     the same archive.
   6. two ranks: this script starts workers of itself (``--dist-worker``)
      that join one gloo group through a file store and share cuda:0, each
      with half the host's cores. First one rank alone compresses and
@@ -86,12 +89,28 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      the busiest call sites of those, and the peak RSS of compress and of
      decompress (sampled from /proc/self/statm; the 5M runs each in fresh
      processes).
+  7. cluster step: ``ops/step.py::cluster_step`` (kernel (c) and the three
+     kernels of csrc/step.cu, one torch.sort) on phase 2's read store, k =
+     31. On its first 2^20 reads (span_cols N 2L) all five outputs equal
+     the plain version's, and each kernel's its plain version's; the same
+     on 2,048 rows of (AT)^50 and 2,048 copies of one read at k = 30. Then
+     all 5,000,000 reads, span_cols 10^9, on the kernel path alone: order
+     equals numpy's stable argsort of the keys from sketch_reads_flat,
+     coverage sums to N L, every diff lies in [0, L], and the call launches
+     each of its four kernels once; the keys and segments kernels equal
+     their plain versions there. Prints the step's and each piece's ms
+     (the step and the sort from CUDA events around single calls, medians
+     of 10; the kernels from CUDA graphs), the peak device memory and the
+     bounds. ``step_times.py`` times the step's kernels alone.
 The line before the last is a JSON object with each kernel's numbers
 (bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
 ops_bound_ms: the integer operations its function needs, see ``OPS``, over
 16.75 T/s; bound_ms: the larger of the two); the last line is {"ok": true,
 "device": {...}}. ``rans_times.py``, ``sketch_times.py`` and
-``consensus_times.py`` run phase 1's checks of one kernel alone.
+``consensus_times.py`` run phase 1's checks of one kernel alone. The rows
+of the step's kernels give ms and bound_ms at 5,000,000 reads, ms_at_2p20
+at 2^20, and plain_ms at ``plain_reads`` reads (the vote's plain version
+needs a [span, 4] count table: 2^20 reads).
 """
 
 from __future__ import annotations
@@ -115,7 +134,7 @@ from bench import make_dataset
 from minicom_tpu_torch import CompressorConfig, compressor, native
 from minicom_tpu_torch.entropy import device_ctx_rans, device_rans
 from minicom_tpu_torch.io import container, fastq
-from minicom_tpu_torch.ops import consensus, cuda, rans, sketch, verify
+from minicom_tpu_torch.ops import consensus, cuda, rans, sketch, step, verify
 from minicom_tpu_torch.ops.pack import (pack_2bit_words, popcount_u32,
                                         revcomp_codes)
 from minicom_tpu_torch.pipeline import classify, cluster, merge
@@ -218,6 +237,14 @@ OPS = {
     "vote_base": 7, "vote_column": 9,
     # one 32-bit word pair: xor, population count, add
     "verify_word": 3,
+    # the fused step: one read's key and mz from (c)'s words (join hi and
+    # lo 2, position and strand 2, the mirror 2); one base of a read whose
+    # k-mer at start 0 is rebuilt (forward shift-or 2, complement 1, its
+    # shift-or 2); one sorted item's segment (the key against the one
+    # before 2, the running count 1, the segment max 1); one column of the
+    # step's vote (the first maximum 9, the coverage 3)
+    "step_key": 6, "step_rebuild_base": 5, "segment_item": 4,
+    "step_column": 12,
     # one coding slot: f >= 1, the emit test (shift, compare, and valid) 3,
     # the word 1, the renormalised state (shift, select) 2, quotient and
     # remainder 2, shift, add c, or 3, keep the state on a pad slot 1,
@@ -1329,9 +1356,55 @@ def phase4_verify_path(dev, fq):
     return lt.launched
 
 
-def phase5_resume(dev, fq, tmp):
-    """A run resumed from the cluster snapshot re-votes in merge and writes
-    the uninterrupted run's archive."""
+# Names of the kernels that a traced compress must show (csrc/).
+TRACED_KERNELS = {"mtc_sketch_reads": "sketch_reads_kernel",
+                  "mtc_consensus_vote": "vote_tiles_kernel",
+                  "mtc_sketch_windowed": "sketch_windowed_kernel"}
+
+
+def _traced_compress(dev, fq, tmp, want):
+    """One compress without MTC_TRACE_DIR, then two with it (the first pays
+    the profiler's start-up): every archive must equal ``want``, and each
+    trace must hold device events of the read minimizer, the vote and the
+    contig sketch."""
+    out = os.path.join(tmp, "trace.mtc")
+    t0 = time.perf_counter()
+    compressor.compress(fq, out, device=dev)
+    walls = [time.perf_counter() - t0]
+    _same_archive(out, want, "untraced compress and phase 3")
+    for i in range(2):
+        trace_dir = os.path.join(tmp, f"trace{i}")
+        os.environ["MTC_TRACE_DIR"] = trace_dir
+        try:
+            t0 = time.perf_counter()
+            compressor.compress(fq, out, device=dev)
+            walls.append(time.perf_counter() - t0)
+        finally:
+            del os.environ["MTC_TRACE_DIR"]
+        _same_archive(out, want, "traced compress and phase 3")
+        files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
+            raise AssertionError(f"MTC_TRACE_DIR holds {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        found = {k: sum(fn in e.get("name", "") for e in kern)
+                 for k, fn in TRACED_KERNELS.items()}
+        if not all(found.values()):
+            raise AssertionError(f"trace kernel events by kernel: {found}")
+        busy = sum(e.get("dur", 0) for e in kern) / 1e6
+        print(f"[5] MTC_TRACE_DIR, compress {i + 1}: "
+              f"{os.path.getsize(files[0])} B trace, {len(events)} events, "
+              f"{len(kern)} kernel events ({busy:.6f} s on the card), ours "
+              f"by name {json.dumps(found)}")
+    print(f"[5] compress walls s, untraced then traced twice: "
+          f"{json.dumps(walls)}; archives equal phase 3's")
+
+
+def phase5_resume(dev, fq, tmp, want):
+    """A traced compress; then a run resumed from the cluster snapshot
+    re-votes in merge and writes the uninterrupted run's archive."""
+    _traced_compress(dev, fq, tmp, want)
     ck = os.path.join(tmp, "ck")
     a, b = (os.path.join(tmp, f"resume_{x}.mtc") for x in ("a", "b"))
     cfg = CompressorConfig(checkpoint_dir=ck)
@@ -1642,6 +1715,251 @@ def phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same):
           f"took {time.perf_counter() - t0:.1f} s")
 
 
+STEP_KERNELS = ("mtc_step_keys", "mtc_step_segments", "mtc_step_vote")
+STEP_SEG_READS = 1 << 20   # the reads held exactly against the plain step
+
+
+def _step_keys_host(store, words, k):
+    """The step's sort keys from ``sketch_reads_flat``'s words, on the host:
+    hi << 32 | lo, or the k-mer at start 0 where no k-mer was chosen."""
+    key = words[0].astype(np.int64) << 32 | words[1]
+    none = np.flatnonzero(words[2] == 0)
+    if len(none):
+        f = np.zeros(len(none), np.int64)
+        r = np.zeros(len(none), np.int64)
+        for t in range(k):
+            c = store[none, t].astype(np.int64)
+            f = f << 2 | c
+            r |= (c ^ 3) << (2 * t)
+        key[none] = np.minimum(f, r)
+    return key, len(none)
+
+
+def _step_pieces(c, k):
+    """Kernel (c) on an arange of c's rows, then the step's keys and
+    segments kernels, each against its plain version on the same inputs;
+    returns the intermediates and the max |diff| (0)."""
+    N = c.shape[0]
+    rids = torch.arange(N, dtype=torch.int32, device=c.device)
+    sk = sketch.sketch_reads_device(c, rids, k)
+    key, mz = step._keys(c, sk, k)
+    err = 0
+    for name, g, w in zip(("key", "mz"), (key, mz),
+                          step._keys_plain(c, sk, k)):
+        err = max(err, _equal(f"step keys {name} vs plain", g.cpu(),
+                              w.cpu()))
+    skey, order = torch.sort(key, stable=True)
+    seg = step._segments(skey, order, mz)
+    want = step._segments_plain(skey, order, mz)
+    nseg = len(want[3]) - 1
+    if int(seg[3][N + 1]) != nseg:
+        raise AssertionError("step segments: segment count")
+    for name, g, w in zip(("order", "smz", "seg_id", "first", "seg_max"),
+                          seg, want):
+        err = max(err, _equal(f"step segments {name} vs plain",
+                              g[:len(w)].cpu(), w.cpu()))
+    return dict(rids=rids, sk=sk, key=key, mz=mz, skey=skey, order=order,
+                seg=seg, seg_plain=want, nseg=nseg), err
+
+
+def _step_exact(tag, c, k, span):
+    """cluster_step on the card (one launch of each of its four kernels)
+    equal to _cluster_step_plain, all five outputs; each piece equal to its
+    plain version. Returns the pieces and the max |diff| (0)."""
+    n0 = dict(cuda.launches)
+    got = step.cluster_step(c, k, span)
+    made = {x: cuda.launches[x] - n0.get(x, 0)
+            for x in ("mtc_sketch_reads",) + STEP_KERNELS}
+    if set(made.values()) != {1}:
+        raise AssertionError(f"{tag}: launches {made}, want one each")
+    want = step._cluster_step_plain(c, k, span)
+    err = 0
+    for name, g, w in zip(("consensus", "coverage", "diffs", "seg_id",
+                           "order"), got, want):
+        err = max(err, _equal(f"{tag} {name} vs plain", g.cpu(), w.cpu()))
+    pieces, e = _step_pieces(c, k)
+    vote = step._vote(c, *pieces["seg"], span)
+    ref = step._vote_plain(c, *pieces["seg_plain"][:3],
+                           pieces["seg_plain"][4], span)
+    for name, g, w in zip(("consensus", "coverage", "diffs"), vote, ref):
+        err = max(err, _equal(f"{tag} vote {name} vs plain", g.cpu(),
+                              w.cpu()))
+    return pieces, max(err, e)
+
+
+def _step_bounds(N, L, k, span, nseg, rebuilt):
+    """Bytes and integer operations of each kernel's function and of the
+    whole step (``OPS``): each input read once, each output written once."""
+    seg_out = 4 * (3 * N + 2 * nseg + 2)
+    b = {
+        "mtc_step_keys": _bound(24 * N + rebuilt * k, N * OPS["step_key"]
+                                + rebuilt * k * OPS["step_rebuild_base"]),
+        "mtc_step_segments": _bound(20 * N + seg_out,
+                                    N * OPS["segment_item"]),
+        "mtc_step_vote": _bound(N * (L + 16) + 8 * nseg + 5 * span,
+                                N * L * OPS["vote_base"]
+                                + span * OPS["step_column"]),
+    }
+    b["step"] = _bound(N * L + 5 * span + 12 * N,
+                       N * (L - k + 1) * kmer_min_ops(k)
+                       + N * (OPS["step_key"] + OPS["segment_item"])
+                       + N * L * OPS["vote_base"]
+                       + span * OPS["step_column"])
+    return b
+
+
+def _vote_ms(c, seg, span):
+    """mtc_step_vote on the segments ``seg`` of c, from CUDA graphs."""
+    N, L = c.shape
+    outs = (torch.empty(span, dtype=torch.uint8, device=c.device),
+            torch.empty(span, dtype=torch.int32, device=c.device),
+            torch.empty(N, dtype=torch.int32, device=c.device))
+    return _graph_ms(lambda: cuda.launch("mtc_step_vote", c, L, *seg, N,
+                                         step.tile_slots(L), span, *outs))
+
+
+def phase7_cluster_step(dev, fq, report):
+    """The fused cluster step on the phase-2 read store (N substituted by
+    classify), k = 31: exact against the plain version on its first 2^20
+    reads (span N 2L), then on 2,048 rows of (AT)^50 and 2,048 copies of
+    one read at k = 30; then all 5,000,000 reads (span_cols 10^9) on the
+    kernel path alone: order equal to numpy's stable argsort of the keys
+    from sketch_reads_flat, coverage summing to N L, every diff <= L, one
+    launch of each kernel. Times: CUDA events, medians of 10 (the step and
+    the sort), the kernels from CUDA graphs of 20 launches (medians of 10
+    replays). Returns the 5M call's launches of the three step kernels."""
+    t_start = time.perf_counter()
+    codes = fastq.read_fastq_codes(fq)
+    store = classify.classify(codes, CompressorConfig().resolve(
+        codes.shape[1])).codes_sub
+    del codes
+    c_all = torch.from_numpy(store).to(dev)
+    N, L = c_all.shape
+    k = 31
+
+    n = min(STEP_SEG_READS, N)
+    c = c_all[:n]
+    span_n = n * 2 * L
+    pieces, err = _step_exact(f"step {n} x {L}", c, k, span_n)
+    rng = np.random.default_rng(30)
+    odd = np.empty((4096, L), np.uint8)
+    odd[:2048] = np.resize(np.array([0, 3], np.uint8), L)
+    odd[2048:] = store[int(rng.integers(0, N))]
+    odd = torch.from_numpy(odd).to(dev)
+    deep, e = _step_exact("step (AT)^50 and copies, k=30", odd, 30,
+                          4096 * 2 * L)
+    err = max(err, e)
+    # the vote's cost of two segments of 2,048 members against 4,096 reads
+    # of the store in their own segments
+    few, _ = _step_pieces(c[:4096], 30)
+    deep_ms = {"two segments of 2048": _vote_ms(odd, deep["seg"],
+                                                4096 * 2 * L),
+               f"{few['nseg']} segments": _vote_ms(c[:4096], few["seg"],
+                                                   4096 * 2 * L)}
+    del deep, few, odd
+    seg = pieces["seg"]
+    agg = torch.empty(2 * (-(-n // step.SEG_BLOCK)), dtype=torch.int32,
+                      device=dev)
+    small = dict(
+        step=_ms(lambda: step.cluster_step(c, k, span_n), 10),
+        plain=_ms(lambda: step._cluster_step_plain(c, k, span_n), 3),
+        mtc_step_keys=_graph_ms(lambda: cuda.launch(
+            "mtc_step_keys", c, L, pieces["sk"], n, k, pieces["key"],
+            pieces["mz"])),
+        mtc_step_segments=_graph_ms(lambda: cuda.launch(
+            "mtc_step_segments", pieces["skey"], pieces["order"],
+            pieces["mz"], n, agg, *seg)),
+        mtc_step_vote=_vote_ms(c, seg, span_n),
+        plain_mtc_step_keys=_ms(lambda: step._keys_plain(c, pieces["sk"],
+                                                         k), 5),
+        plain_mtc_step_segments=_ms(lambda: step._segments_plain(
+            pieces["skey"], pieces["order"], pieces["mz"]), 5),
+        plain_mtc_step_vote=_ms(lambda: step._vote_plain(
+            c, *pieces["seg_plain"][:3], pieces["seg_plain"][4], span_n),
+            3))
+    del pieces, seg, agg
+    print(f"[7] cluster_step {n} x {L}, k={k}, span {span_n}: equal to the "
+          "plain step, all five outputs, and each kernel to its plain "
+          f"version; (AT)^50 and copies at k=30 equal too; ms "
+          f"{json.dumps(small)}; the vote at 4096 x {L}, k=30, ms "
+          f"{json.dumps(deep_ms)}")
+
+    # all the reads, on the kernel path alone
+    span = N * 2 * L
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    with _LaunchTimer() as lt:
+        cons, cov, diffs, seg_id, order = step.cluster_step(c_all, k, span)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    made = {x: lt.launched.get(x, 0)
+            for x in ("mtc_sketch_reads",) + STEP_KERNELS}
+    if set(made.values()) != {1}:
+        raise AssertionError(f"5M cluster_step launches {made}, want one "
+                             "each")
+    words = sketch.sketch_reads_flat(c_all, np.arange(N), k)
+    key, rebuilt = _step_keys_host(store, words, k)
+    _equal("5M order vs numpy's stable argsort", order.cpu(),
+           np.argsort(key, kind="stable"))
+    if int(cov.sum()) != N * L:
+        raise AssertionError("5M coverage does not sum to N L")
+    if int(diffs.max()) > L or int(diffs.min()) < 0:
+        raise AssertionError("5M diffs outside [0, L]")
+    nseg = int(seg_id[-1]) + 1
+    del cons, cov, diffs, seg_id, order
+
+    # the 5M call's pieces and their plain versions (the vote's plain
+    # version needs the whole [span, 4] count table: 2^20 reads above)
+    pieces, e = _step_pieces(c_all, k)
+    err = max(err, e)
+    seg = pieces["seg"]
+    agg = torch.empty(2 * (-(-N // step.SEG_BLOCK)), dtype=torch.int32,
+                      device=dev)
+    full = dict(
+        step=_ms(lambda: step.cluster_step(c_all, k, span), 10),
+        mtc_sketch_reads=_graph_ms(lambda: cuda.launch(
+            "mtc_sketch_reads", c_all, L, pieces["rids"], N, k,
+            pieces["sk"])),
+        mtc_step_keys=_graph_ms(lambda: cuda.launch(
+            "mtc_step_keys", c_all, L, pieces["sk"], N, k, pieces["key"],
+            pieces["mz"])),
+        sort=_ms(lambda: torch.sort(pieces["key"], stable=True), 10),
+        mtc_step_segments=_graph_ms(lambda: cuda.launch(
+            "mtc_step_segments", pieces["skey"], pieces["order"],
+            pieces["mz"], N, agg, *seg)),
+        mtc_step_vote=_vote_ms(c_all, seg, span),
+        plain_mtc_step_keys=_ms(lambda: step._keys_plain(
+            c_all, pieces["sk"], k), 5),
+        plain_mtc_step_segments=_ms(lambda: step._segments_plain(
+            pieces["skey"], pieces["order"], pieces["mz"]), 5))
+    bounds = _step_bounds(N, L, k, span, nseg, rebuilt)
+    sizes = np.diff(seg[3][:nseg + 1].cpu().numpy())
+    print(f"[7] cluster_step {N} x {L}, k={k}, span {span}: order equals "
+          f"numpy's stable argsort of sketch_reads_flat's keys ({rebuilt} "
+          f"reads without a chosen k-mer), coverage sums to N L, diffs in "
+          f"[0, {L}]; {nseg} segments (largest {int(sizes.max())} "
+          "members), "
+          f"one launch each {json.dumps(made)}; device s "
+          f"{json.dumps(lt.seconds())}; peak device memory {peak} B "
+          f"({peak - base_mem} B over the store); ms {json.dumps(full)}; "
+          f"bound of the step {json.dumps(bounds['step'])}; keys and "
+          "segments equal to their plain versions at 5M")
+    for name in STEP_KERNELS:
+        report[name] = dict(
+            name=f"cluster_step {name[9:]}", route="cuda",
+            source="minicom_tpu_torch/csrc/step.cu",
+            replaces="minicom_tpu/ops/step.py:28", max_abs_err=err,
+            ms=full[name], reads=N, ms_at_2p20=small[name],
+            plain_ms=full.get("plain_" + name, small["plain_" + name]),
+            plain_reads=N if "plain_" + name in full else n,
+            **bounds[name])
+    del pieces, seg, agg, c_all
+    torch.cuda.empty_cache()
+    print(f"[7] phase 7 took {time.perf_counter() - t_start:.1f} s")
+    return {x: made[x] for x in STEP_KERNELS}
+
+
 def phase0_device():
     """cuda:0 with its name and power limit printed and the kernels and the
     host library built; None where there is no CUDA device."""
@@ -1693,15 +2011,16 @@ def main() -> int:
         m1, m2, same = phase3_same_bytes(dev, fq_small, tmp)
         ver = phase4_verify_path(dev, fq_small)
         _require(ver, ("mtc_popcount_verify",), "the realign verify path")
-        phase5_resume(dev, fq_small, tmp)
+        phase5_resume(dev, fq_small, tmp, same["codec=auto"])
         phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same)
+        steps = phase7_cluster_step(dev, fq, report)
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
-                    mtc_popcount_verify=ver["mtc_popcount_verify"])
+                    mtc_popcount_verify=ver["mtc_popcount_verify"], **steps)
     kernels = [dict(report[k], launches=launched[k]) for k in
                ("mtc_sketch_reads", "mtc_sketch_windowed",
                 "mtc_consensus_vote", "mtc_rans_encode", "mtc_rans_decode",
-                "mtc_popcount_verify")]
+                "mtc_popcount_verify") + STEP_KERNELS]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

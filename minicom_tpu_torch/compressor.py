@@ -84,14 +84,31 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
              device="cuda") -> dict:
     """Compress a FASTQ file (with ``reads_path2``: the two files of a
     paired-end run) into a .mtc archive; returns the run summary. ``cfg`` is
-    not modified."""
+    not modified.
+
+    With MTC_TRACE_DIR set, the run is traced by ``torch.profiler`` (host
+    activity, and the card's kernels when ``device`` is a CUDA device) and
+    the trace written into that directory as ``<host>_<pid>.<ns>.pt.trace.
+    json`` (TensorBoard's and Perfetto's format); the archive is the same."""
     # paired is set on a copy: the caller's config stays reusable for a
     # single-end run
     cfg = dataclasses.replace(cfg or CompressorConfig(),
                               paired=reads_path2 is not None)
     dev = _device(device)
     stats = stats or StageStats()
+    trace_dir = os.environ.get("MTC_TRACE_DIR")
+    if not trace_dir:
+        return _compress(reads_path, out_path, cfg, reads_path2, stats, dev)
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                     if dev.type == "cuda" else [])
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)):
+        return _compress(reads_path, out_path, cfg, reads_path2, stats, dev)
 
+
+def _compress(reads_path, out_path, cfg, reads_path2, stats, dev) -> dict:
     with stats.stage("load"):
         codes, half_val = _load(reads_path, reads_path2)
     n_seq, L = codes.shape

@@ -23,7 +23,7 @@ from minicom_tpu_torch.native import build_shared
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "csrc")
 _SRCS = [os.path.join(_CSRC, f) for f in ("sketch.cu", "consensus.cu",
-                                           "rans.cu", "verify.cu")]
+                                           "rans.cu", "verify.cu", "step.cu")]
 
 launches: collections.Counter = collections.Counter()
 _launches_lock = threading.Lock()
@@ -37,6 +37,10 @@ _SIGS = {
     "mtc_rans_encode": [_P, _P, _P, _I64, _I64, _P, _P, _P, _P],
     "mtc_rans_decode": [_P, _P, _I64, _P, _P, _I64, _I64, _P, _P],
     "mtc_popcount_verify": [_P, _P, _I64, _I64, _P, _P],
+    "mtc_step_keys": [_P, _I64, _P, _I64, _INT, _P, _P, _P],
+    "mtc_step_segments": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P],
+    "mtc_step_vote": [_P, _I64, _P, _P, _P, _P, _P, _I64, _INT, _I64, _P,
+                      _P, _P, _P],
 }
 _lib = None
 _lib_lock = threading.Lock()

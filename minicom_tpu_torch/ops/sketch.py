@@ -135,6 +135,33 @@ def sketch_reads_flat(codes: torch.Tensor, rids: np.ndarray,
     return res.numpy().view(np.uint32)
 
 
+def sketch_reads_device(codes: torch.Tensor, rids: torch.Tensor,
+                        k: int) -> torch.Tensor:
+    """The read minimizer of ``sketch_reads_flat`` with the rids and the
+    result left on the store's device: rids [n] int32; returns [3, n] int32
+    holding the u32 words. One launch and no sync on the card, so the rids
+    are not range checked there: each must lie in the store (the fused
+    cluster step passes an arange)."""
+    cuda.check(codes, torch.uint8, 2, "codes")
+    cuda.check(rids, torch.int32, 1, "rids")
+    if rids.device != codes.device:
+        raise ValueError("codes and rids on different devices")
+    if not 1 <= k <= 31:
+        raise ValueError(f"k={k} outside [1, 31]")
+    if codes.device.type == "cpu":
+        return _sketch_reads_plain(codes, rids.to(torch.int64), k).view(
+            torch.int32)
+    N, L = codes.shape
+    if L > L_MAX or N > RID_MAX:
+        raise ValueError(f"a store of {N} reads of {L} bases: the kernel "
+                         f"takes at most {RID_MAX} of {L_MAX}")
+    cuda.require_cuda(codes)
+    out = torch.empty((3, len(rids)), dtype=torch.int32, device=codes.device)
+    if len(rids):
+        cuda.launch("mtc_sketch_reads", codes, L, rids, len(rids), k, out)
+    return out
+
+
 def sketch_reads_gather(codes: torch.Tensor, rids: torch.Tensor,
                         k: int) -> torch.Tensor:
     """Whole-read canonical minimizer of the rows ``codes[rids]``.

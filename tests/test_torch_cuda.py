@@ -7,7 +7,7 @@ card (which has no jax, so without the repo conftest):
 
 (the second: the rANS kernels alone, seconds; ``-k sketch`` and ``-k
 consensus`` take the other kernels alone, ``-k sketch_reads`` the read
-minimizer).
+minimizer, ``-k step`` the fused cluster step).
 """
 
 import importlib.util
@@ -19,18 +19,32 @@ import torch
 
 from minicom_tpu_torch import CompressorConfig, compressor
 from minicom_tpu_torch.entropy import backend, device_ctx_rans, device_rans
-from minicom_tpu_torch.ops import cuda, rans
+from minicom_tpu_torch.ops import cuda, rans, step
 from minicom_tpu_torch.ops.consensus import (TILE, consensus_vote,
                                              consensus_vote_flat)
 from minicom_tpu_torch.ops.rans import (LANES, M, rans_decode,
                                         rans_decode_blocks,
                                         rans_encode_blocks)
 from minicom_tpu_torch.ops.sketch import (_sketch_reads_plain,
+                                          sketch_reads_device,
                                           sketch_reads_flat,
                                           sketch_reads_gather,
                                           sketch_windowed_compact32,
                                           sketch_windowed_flat)
 from minicom_tpu_torch.ops.verify import popcount_verify
+
+
+def _load_helper(name):
+    """A helper module of tests/ by its file (the card's site-packages may
+    hold another package named tests)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(__file__), f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_step_cases = _load_helper("_step_cases")
 
 pytestmark = pytest.mark.cuda
 
@@ -327,6 +341,66 @@ def test_wrappers_refuse_other_devices(dev):
     codes = torch.zeros((4, 10), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         sketch_reads_gather(codes, torch.zeros(2, dtype=torch.int64), 5)
+    with pytest.raises(ValueError):
+        sketch_reads_device(codes, torch.zeros(2, dtype=torch.int32), 5)
+
+
+STEP_KERNELS = ("mtc_sketch_reads", "mtc_step_keys", "mtc_step_segments",
+                "mtc_step_vote")
+STEP_CASES = _step_cases.step_cases()
+
+
+def _step_once(c, k, span):
+    """cluster_step on the card: one launch of each of its four kernels."""
+    n0 = {x: cuda.launches[x] for x in STEP_KERNELS}
+    got = step.cluster_step(c, k, span)
+    launched = {x: cuda.launches[x] - n0[x] for x in STEP_KERNELS}
+    assert launched == dict.fromkeys(STEP_KERNELS, 1)
+    return [x.cpu().numpy() for x in got]
+
+
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_step_kernels_match_plain(dev, name):
+    codes, k, span = STEP_CASES[name]
+    c = torch.from_numpy(codes).to(dev)
+    got = _step_once(c, k, span)
+    for g, w in zip(got, step._cluster_step_plain(c, k, span)):
+        np.testing.assert_array_equal(g, w.cpu().numpy())
+
+
+def test_step_pieces_over_several_tiles_and_scan_blocks(dev):
+    """20,000 genome reads, 6,000 of them one read (a segment across the
+    segment scan's blocks of 4096): each kernel against its plain version
+    on the same inputs, the vote at span_cols below, at and above N 2L."""
+    rng = np.random.default_rng(5)
+    N, L, k = 20_000, 100, 31
+    codes = _step_cases.genome_codes(rng, N, L, genome_len=200_000)
+    codes[rng.permutation(N)[:6000]] = codes[0]
+    c = torch.from_numpy(codes).to(dev)
+    sk = sketch_reads_device(c, torch.arange(N, dtype=torch.int32,
+                                             device=dev), k)
+    key, mz = step._keys(c, sk, k)
+    for g, w in zip((key, mz), step._keys_plain(c, sk, k)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    skey, order = torch.sort(key, stable=True)
+    got = step._segments(skey, order, mz)
+    want = step._segments_plain(skey, order, mz)
+    nseg = len(want[3]) - 1
+    assert N > 2 * step.SEG_BLOCK and nseg > 4 * step.tile_slots(L)
+    assert int(got[3][N + 1]) == nseg
+    for g, w, n in zip(got, want, (N, N, N, nseg + 1, nseg)):
+        np.testing.assert_array_equal(g[:n].cpu().numpy(), w.cpu().numpy())
+    for span in (N * 2 * L, N * 2 * L // 5 + 3, N * 2 * L + 9999):
+        out = step._vote(c, *got, span)
+        ref = step._vote_plain(c, *want[:3], want[4], span)
+        for g, w in zip(out, ref):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+def test_step_refuses_long_reads_on_the_card(dev):
+    codes = torch.zeros((4, 300), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        step.cluster_step(codes, 31, 4 * 600)
 
 
 def _payload(name):
@@ -642,12 +716,7 @@ def test_two_rank_roundtrip_on_cuda(dev, tmp_path):
     cuda archive, each rank launched the read minimizer, the vote and the
     contig sketch, and the sharded decode equals the single-process one."""
     from bench import make_dataset
-    # by path: the card host may have another top-level "tests" package
-    spec = importlib.util.spec_from_file_location(
-        "_torch_dist_worker",
-        os.path.join(os.path.dirname(__file__), "_torch_dist_worker.py"))
-    worker = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(worker)
+    worker = _load_helper("_torch_dist_worker")
     job_results, run_group = worker.job_results, worker.run_group
     fq = str(tmp_path / "in.fastq")
     make_dataset(fq, 20_000)
