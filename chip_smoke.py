@@ -102,6 +102,21 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      (the step and the sort from CUDA events around single calls, medians
      of 10; the kernels from CUDA graphs), the peak device memory and the
      bounds. ``step_times.py`` times the step's kernels alone.
+  8. sharded cluster step: ``parallel/mesh.py::sharded_cluster_step`` in
+     two workers of this script (``--dist-worker``) that join one gloo
+     group and share cuda:0, each with half the rows: (i) phase 7's first
+     2^20 reads, span_cols N 2L; (ii) 4,096 rows of phase 2's store, 2,049
+     of them the one whose key sorts last, at k = 30 (one segment across
+     both ranks; rank 1 owns none); (iii) all 5,000,000 reads, span_cols
+     10^9. The ranks' consensus and coverage (whole on each) and the
+     rank-order concatenation of their diffs, seg_id and order must equal
+     the one-card ``cluster_step``'s, by SHA-256 digest; each rank must
+     launch kernel (c), the keys and segments kernels once each, and the
+     vote once where it owns a segment with columns below span_cols (rank
+     1 of (ii) owns none and launches no vote). Prints per rank the step's
+     wall, device ms per piece (CUDA events), seconds and bytes sent and
+     received per collective, host-device copies, what it owned, its
+     launches, peak device memory and peak RSS.
 The line before the last is a JSON object with each kernel's numbers
 (bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
 ops_bound_ms: the integer operations its function needs, see ``OPS``, over
@@ -117,6 +132,7 @@ from __future__ import annotations
 
 import filecmp
 import contextlib
+import hashlib
 import json
 import os
 import resource
@@ -137,6 +153,7 @@ from minicom_tpu_torch.io import container, fastq
 from minicom_tpu_torch.ops import consensus, cuda, rans, sketch, step, verify
 from minicom_tpu_torch.ops.pack import (pack_2bit_words, popcount_u32,
                                         revcomp_codes)
+from minicom_tpu_torch.parallel import mesh
 from minicom_tpu_torch.pipeline import classify, cluster, merge
 from minicom_tpu_torch.pipeline.merge import (_batch_m, _lmax_bucket,
                                               _rows_tile, merge_contigs)
@@ -1483,11 +1500,46 @@ class _RssPeak:
             self.peak = max(self.peak, self.now() or 0)
 
 
+def _digests(outs) -> list[str]:
+    """SHA-256 of each tensor's bytes."""
+    return [hashlib.sha256(x.cpu().numpy()).hexdigest() for x in outs]
+
+
+def _sharded_step(rank, world, job, dev):
+    """Phase 8's job on one rank: this rank's share of the first "n" rows
+    of the .npy "rows", as ``mesh.sharded_cluster_step`` takes them;
+    returns its numbers and the digests of consensus and coverage, and
+    writes its slices of diffs, seg_id and order to "slices"."""
+    rows = np.load(job["rows"], mmap_mode="r")
+    b = [job["n"] * r // world for r in range(world + 1)]
+    local = torch.from_numpy(np.ascontiguousarray(
+        rows[b[rank]:b[rank + 1]])).to(dev)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    n0, stats = dict(cuda.launches), {}
+    with _RssPeak() as rss:
+        t0 = time.perf_counter()
+        out = mesh.sharded_cluster_step(local, job["k"], job["span"], stats)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {x: v - n0.get(x, 0) for x, v in cuda.launches.items()
+                if v > n0.get(x, 0)}
+    for i, x in enumerate(out[2:]):
+        x.cpu().numpy().tofile(job["slices"].format(rank=rank, i=i + 2))
+    return dict(rows=b[rank + 1] - b[rank], step_s=wall, stats=stats,
+                launched=launched, peak_device_B=peak,
+                device_over_rows_B=peak - base, peak_rss_B=rss.peak,
+                digests=_digests(out[:2]))
+
+
 def dist_worker(argv) -> int:
-    """One rank of phase 6: ``chip_smoke.py --dist-worker RANK WORLD STORE
-    JOBS``. Joins a gloo group through ``file://STORE`` and runs the jobs
-    of JOBS (a JSON list) on cuda:0: a job with "fq" compresses, one with
-    "arc" decompresses (after the compress when it has both). Prints one
+    """One rank of phases 6 and 8: ``chip_smoke.py --dist-worker RANK WORLD
+    STORE JOBS``. Joins a gloo group through ``file://STORE`` and runs the
+    jobs of JOBS (a JSON list) on cuda:0: a job with "fq" compresses, one
+    with "arc" decompresses (after the compress when it has both), one with
+    "rows" runs the sharded cluster step (``_sharded_step``). Prints one
     ``DIST {...}`` line per job: walls, stages, kernel launches, the
     seconds and bytes spent in the package's all-gathers, and the peak RSS
     of the process after each step."""
@@ -1561,6 +1613,8 @@ def dist_worker(argv) -> int:
                        decode_launches=lt.launched, decode_coll=dict(coll),
                        decode_peak_rss_B=rss.peak,
                        decode_stage_rss_B=rss.by_stage)
+        if job.get("rows"):
+            res.update(_sharded_step(rank, world, job, dev))
         print("DIST " + json.dumps(res), flush=True)
     distributed.shutdown()
     return 0
@@ -1601,9 +1655,9 @@ def _run_dist(tmp, tag, world, jobs, timeout):
             outs.append(f.read())
     if any(p.returncode != 0 for p in procs):
         for r, (p, out) in enumerate(zip(procs, outs)):
-            print(f"[6] {tag} rank {r} exit {p.returncode}:\n{out[-3000:]}",
+            print(f"group {tag} rank {r} exit {p.returncode}:\n{out[-3000:]}",
                   file=sys.stderr)
-        raise AssertionError(f"phase 6 group {tag} failed")
+        raise AssertionError(f"group {tag} failed")
     return [[json.loads(line[5:]) for line in out.splitlines()
              if line.startswith("DIST ")] for out in outs]
 
@@ -1827,7 +1881,8 @@ def phase7_cluster_step(dev, fq, report):
     from sketch_reads_flat, coverage summing to N L, every diff <= L, one
     launch of each kernel. Times: CUDA events, medians of 10 (the step and
     the sort), the kernels from CUDA graphs of 20 launches (medians of 10
-    replays). Returns the 5M call's launches of the three step kernels."""
+    replays). Returns the 5M call's launches of the three step kernels and
+    the read store."""
     t_start = time.perf_counter()
     codes = fastq.read_fastq_codes(fq)
     store = classify.classify(codes, CompressorConfig().resolve(
@@ -1957,7 +2012,132 @@ def phase7_cluster_step(dev, fq, report):
     del pieces, seg, agg, c_all
     torch.cuda.empty_cache()
     print(f"[7] phase 7 took {time.perf_counter() - t_start:.1f} s")
-    return {x: made[x] for x in STEP_KERNELS}
+    return {x: made[x] for x in STEP_KERNELS}, store
+
+
+MESH_SPAN = 10 ** 9   # phase 8's columns at all the reads, as phase 7's
+
+
+def _deep_rows(store, rng, k):
+    """4,096 rows of the store, 2,048 of them copies of the one whose key
+    sorts last (found by the plain minimizer on the host): its segment of
+    2,049 members runs from sorted position 2,047 to the end, across both
+    ranks, and rank 1 owns no segment."""
+    rows = store[np.sort(rng.choice(len(store), 4096, replace=False))]
+    top = int(step._minimizers_plain(torch.from_numpy(rows), k)[0].argmax())
+    rows[[0, top]] = rows[[top, 0]]
+    rows[1 + rng.permutation(4095)[:2048]] = rows[0]
+    return rows
+
+
+def _rank_bound(N, L, k, nseg, owned) -> dict:
+    """The least time of one rank's device work in the sharded step, each
+    piece's bound (``_bound``) added: kernel (c) and the keys on its rows,
+    the sort of all N keys (8 bytes in, 16 out a key), the segments of all
+    N, the vote of the members and columns it owns."""
+    n, m, cols = owned["rows"], owned["members"], owned["columns"]
+    pieces = {
+        "keys": _bound(n * (L + 16), n * (L - k + 1) * kmer_min_ops(k)),
+        "keys_words": _bound(24 * n, n * OPS["step_key"]),
+        "sort": _bound(24 * N, 0),
+        "segments": _bound(20 * N + 4 * (3 * N + 2 * nseg + 2),
+                           N * OPS["segment_item"]),
+        "vote": _bound(m * (L + 16) + 8 * owned["segments"] + 5 * cols,
+                       m * L * OPS["vote_base"] + cols * OPS["step_column"])
+        if owned["voted"] else _bound(0, 0)}
+    return {"bound_ms": sum(b["bound_ms"] for b in pieces.values()),
+            **{name: b["bound_ms"] for name, b in pieces.items()}}
+
+
+def _print_sharded(tag, r, got, bound):
+    st = got["stats"]
+    coll = {k: [round(v["s"], 4), v["sent_B"], v["recv_B"]]
+            for k, v in st["collectives"].items()}
+    print(f"[8] {tag} rank {r}/2 ({got['rows']} rows): step "
+          f"{got['step_s']:.3f} s (wall in the step {st['wall_s']:.3f}); "
+          f"device ms {json.dumps(st['device_ms'])}; collectives [s, sent "
+          f"B, received B] {json.dumps(coll)}; host-device copies "
+          f"{json.dumps(st['copies'])}; owned {json.dumps(st['owned'])}; "
+          f"launches {json.dumps(got['launched'])}; peak device memory "
+          f"{got['peak_device_B']} B ({got['device_over_rows_B']} B over "
+          f"the rows); peak RSS {got['peak_rss_B']} B ({got['start_rss_B']} "
+          f"B at the worker's start); device ms in all "
+          f"{sum(st['device_ms'].values()):.4f}, bound of that work "
+          f"{json.dumps(bound)}")
+
+
+def phase8_sharded_step(dev, tmp, store):
+    """The sharded cluster step (``parallel/mesh.py``) in two ranks of one
+    gloo group on cuda:0, each with half the rows: (i) phase 7's first 2^20
+    reads, span_cols N 2L; (ii) 4,096 rows, 2,049 of them one read, at k =
+    30 (one segment across both ranks, none owned by rank 1); (iii) all
+    5,000,000 reads, span_cols 10^9. The rank-order concatenation of the
+    ranks' outputs (consensus and coverage whole on each) must equal the
+    one-card step's, by SHA-256 digest; each rank must launch kernel (c),
+    the keys and segments kernels once each, and the vote once where it
+    owns a segment with columns below span_cols, else not at all."""
+    t_start = time.perf_counter()
+    N, L = store.shape
+    paths = {"store": os.path.join(tmp, "step_store.npy"),
+             "deep": os.path.join(tmp, "step_deep.npy")}
+    deep = _deep_rows(store, np.random.default_rng(31), 30)
+    np.save(paths["store"], store)
+    np.save(paths["deep"], deep)
+    n = min(STEP_SEG_READS, N)
+    cases = [(f"(i) {n} x {L}, k=31, span {n * 2 * L}", "store", n, 31,
+              n * 2 * L),
+             (f"(ii) 4096 x {L}, 2049 one read, k=30", "deep", 4096, 30,
+              4096 * 2 * L),
+             (f"(iii) {N} x {L}, k=31, span {MESH_SPAN}", "store", N, 31,
+              MESH_SPAN)]
+    want = []
+    for _, rows, m, k, span in cases:
+        c = torch.from_numpy((deep if rows == "deep" else store)[:m]).to(dev)
+        want.append(_digests(step.cluster_step(c, k, span)))
+        del c
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_start
+    slices = os.path.join(tmp, "step{case}_{{rank}}_{{i}}.bin")
+    res = _run_dist(tmp, "step2", 2, [
+        {"tag": tag, "rows": paths[rows], "n": m, "k": k, "span": span,
+         "slices": slices.format(case=j)}
+        for j, (tag, rows, m, k, span) in enumerate(cases)], 400)
+    for j, (tag, rows, m, k, span) in enumerate(cases):
+        nseg = sum(res[r][j]["stats"]["owned"]["segments"] for r in range(2))
+        for r in range(2):
+            got = res[r][j]
+            _print_sharded(tag, r, got, _rank_bound(
+                m, L, k, nseg, got["stats"]["owned"]))
+            if got["digests"] != want[j][:2]:
+                raise AssertionError(f"{tag}: rank {r}'s consensus or "
+                                     "coverage differs from one card's")
+            owned = got["stats"]["owned"]
+            made = {x: 1 for x in ("mtc_sketch_reads", "mtc_step_keys",
+                                   "mtc_step_segments")}
+            if owned["voted"]:
+                made["mtc_step_vote"] = 1
+            if got["launched"] != made:
+                raise AssertionError(f"{tag}: rank {r} launched "
+                                     f"{got['launched']}, want {made}")
+        if rows == "deep" and res[1][j]["stats"]["owned"]["segments"]:
+            raise AssertionError(f"{tag}: rank 1 owns a segment")
+        if rows == "store" and not all(res[r][j]["stats"]["owned"]["voted"]
+                                       for r in range(2)):
+            raise AssertionError(f"{tag}: a rank voted nothing")
+        for i, name in ((2, "diffs"), (3, "seg_id"), (4, "order")):
+            h = hashlib.sha256()
+            for r in range(2):
+                with open(slices.format(case=j).format(rank=r, i=i),
+                          "rb") as f:
+                    h.update(f.read())
+            if h.hexdigest() != want[j][i]:
+                raise AssertionError(f"{tag}: the ranks' {name} differ "
+                                     "from one card's")
+        print(f"[8] {tag}: both ranks' consensus and coverage, and their "
+              "diffs, seg_id and order in rank order, equal the one-card "
+              "step's (SHA-256)")
+    print(f"[8] phase 8 took {time.perf_counter() - t_start:.1f} s (the "
+          f"one-card references {t_ref:.1f} s)")
 
 
 def phase0_device():
@@ -2013,7 +2193,8 @@ def main() -> int:
         _require(ver, ("mtc_popcount_verify",), "the realign verify path")
         phase5_resume(dev, fq_small, tmp, same["codec=auto"])
         phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same)
-        steps = phase7_cluster_step(dev, fq, report)
+        steps, store = phase7_cluster_step(dev, fq, report)
+        phase8_sharded_step(dev, tmp, store)
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
                     mtc_popcount_verify=ver["mtc_popcount_verify"], **steps)

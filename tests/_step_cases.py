@@ -1,5 +1,6 @@
-"""Inputs of the fused cluster step's tests (numpy only: the card's test run
-has no jax). Each case is (codes [N, L] uint8 in 0..3, k, span_cols)."""
+"""Inputs of the fused cluster step's tests, one card and sharded (numpy, and
+the port's plain minimizer for one case: the card's test run has no jax).
+Each case is (codes [N, L] uint8 in 0..3, k, span_cols)."""
 
 import numpy as np
 
@@ -60,3 +61,50 @@ def step_cases(genome=genome_codes):
     cases["span_below"] = (codes, k, span // 3 + 7)
     cases["span_above"] = (codes, k, span + 1001)
     return cases
+
+
+def _cut(codes, k, span, n, L):
+    """A case cut to its first n reads and first L bases, span_cols scaled
+    with N L (N 2L stays N 2L; below and above stay below and above)."""
+    N0, L0 = codes.shape
+    c = np.ascontiguousarray(codes[:n, :L])
+    return c, k, max(1, span * c.shape[0] * c.shape[1] // (N0 * L0))
+
+
+def _deep(rng, n, L, k, m):
+    """n random reads, m + 1 of them one read, the one whose key sorts last:
+    its segment runs from sorted position n - m - 1 to the end."""
+    import torch
+    from minicom_tpu_torch.ops.step import _minimizers_plain
+    codes = rng.integers(0, 4, (n, L), dtype=np.uint8)
+    top = int(_minimizers_plain(torch.from_numpy(codes), k)[0].argmax())
+    codes[[0, top]] = codes[[top, 0]]
+    codes[1 + rng.permutation(n - 1)[:m]] = codes[0]
+    return codes
+
+
+def mesh_cases(genome=genome_codes):
+    """The sharded step's cases: ``step_cases`` cut to 384 reads of 48
+    bases, and an N that no world size of 2 or 3 divides, an empty shard
+    (``mesh_split``), a segment of 301 of 384 reads that begins on rank 0
+    and runs to the end (the other ranks own no segment), span_cols a
+    quarter of N 2L (the last rank's columns all lie past it) and (AT)^24
+    rows at k = 24 (no chosen k-mer) in an uneven N."""
+    cases = {name: _cut(*case, 384, 48)
+             for name, case in step_cases(genome).items()}
+    rng = np.random.default_rng(12)
+    cases["uneven_301"] = (genome(rng, 301, 48), 21, 301 * 96)
+    cases["empty_shard"] = (genome(rng, 256, 40), 17, 256 * 80)
+    cases["deep_spans_ranks"] = (_deep(rng, 384, 48, 23, 300), 23, 384 * 96)
+    cases["span_past_last"] = (rng.integers(0, 4, (256, 40), np.uint8), 19,
+                               256 * 80 // 4)
+    cases["at_rows_k24_uneven"] = (_at_rows(rng, 250, 48), 24, 250 * 96)
+    return cases
+
+
+def mesh_split(name, N, world):
+    """The rows of each rank for case ``name``: ~N / world each, but none on
+    rank 1 of "empty_shard" (none on rank 0 where world is 2)."""
+    if name == "empty_shard":
+        return [0, N] if world == 2 else [N // 2, 0, N - N // 2]
+    return [len(a) for a in np.array_split(np.arange(N), world)]

@@ -1,6 +1,7 @@
 """One rank of a minicom_tpu_torch process group, for
-tests/test_torch_distributed.py (CPU) and tests/test_torch_cuda.py (card),
-and ``run_group``, which starts a group of them:
+tests/test_torch_distributed.py and tests/test_torch_mesh.py (CPU) and
+tests/test_torch_cuda.py (card), and ``run_group``, which starts a group
+of them:
 
     python tests/_torch_dist_worker.py INIT_FILE WORLD RANK JOBS_JSON
 
@@ -24,6 +25,18 @@ hold ``{rank}``. Imports no jax. Jobs:
   (``cluster._sketch``) over a row-sharded store of ``reads_input``, for
   each of its (pending, k) rounds, on the CPU; saves the (key, mpos,
   strand) of every round to ``out`` (an .npz).
+* {"op": "mesh", "cases": path, "out": path, "device", "chunk_bytes"}:
+  ``parallel/mesh.py::sharded_cluster_step`` on each case of the .npz that
+  ``write_mesh_cases`` wrote, this rank's rows of its split for the world
+  size, on "device" (default cpu), with broadcasts of at most "chunk_bytes"
+  (default the module's); saves the five outputs of each case to ``out``
+  (an .npz) and reports per case the launches and the step's stats.
+* {"op": "exchange", "out": path}: the sharded step's row exchange (one
+  ``all_to_all_single``) and a plain all-gather of the same rows, on the
+  inputs of ``exchange_inputs``; saves both to ``out``.
+* {"op": "mesh_errors"}: the sharded step on an int64 matrix from rank 1,
+  on reads of another length on rank 1, and at k = 0; reports what each
+  rank raised.
 """
 
 import datetime
@@ -137,6 +150,88 @@ def _reads(rank, job):
     return {"rounds": len(rounds), "rows": store.r1 - store.r0}
 
 
+def write_mesh_cases(path, cases, split):
+    """Cases of ``tests/_step_cases.py::mesh_cases`` into one .npz, with
+    each case's rows a rank for 2 and 3 ranks from ``split`` (its
+    ``mesh_split``)."""
+    arrays = {}
+    for name, (codes, k, span) in cases.items():
+        arrays[f"{name}/codes"] = codes
+        arrays[f"{name}/args"] = np.array([k, span], np.int64)
+        for world in (2, 3):
+            arrays[f"{name}/split{world}"] = split(name, len(codes), world)
+    np.savez(path, **arrays)
+
+
+def _mesh(rank, world, job):
+    import torch
+    from minicom_tpu_torch.ops import cuda
+    from minicom_tpu_torch.parallel import mesh
+    mesh.CHUNK_BYTES = job.get("chunk_bytes", mesh.CHUNK_BYTES)
+    dev = torch.device(job.get("device", "cpu"))
+    out, res = {}, {}
+    with np.load(job["cases"]) as z:
+        for name in sorted(f[:-6] for f in z.files if f.endswith("/codes")):
+            codes = z[f"{name}/codes"]
+            k, span = (int(x) for x in z[f"{name}/args"])
+            b = np.r_[0, np.cumsum(z[f"{name}/split{world}"])]
+            local = torch.from_numpy(codes[b[rank]:b[rank + 1]]).to(dev)
+            n0, stats = dict(cuda.launches), {}
+            got = mesh.sharded_cluster_step(local, k, span, stats)
+            for i, x in enumerate(got):
+                out[f"{name}/{i}"] = x.cpu().numpy()
+            res[name] = dict(stats, launched={
+                x: n - n0.get(x, 0) for x, n in cuda.launches.items()
+                if n > n0.get(x, 0)})
+    np.savez(job["out"].format(rank=rank), **out)
+    return res
+
+
+EXCHANGE_L = 9
+
+
+def exchange_inputs(rank, world):
+    """(rows [n, EXCHANGE_L] uint8 this rank sends, counts [world, world]):
+    counts[s, o] rows go from rank s to rank o; none from rank 0 to 1."""
+    counts = np.random.default_rng(world).integers(1, 6, (world, world))
+    counts[0, 1] = 0
+    rows = np.random.default_rng(100 * world + rank).integers(
+        0, 256, (int(counts[rank].sum()), EXCHANGE_L)).astype(np.uint8)
+    return rows, counts
+
+
+def _exchange(rank, world, job):
+    import torch
+    from minicom_tpu_torch.parallel import distributed as dist
+    from minicom_tpu_torch.parallel import mesh
+    rows, counts = exchange_inputs(rank, world)
+    got = mesh._exchange_rows(torch.from_numpy(rows), counts[rank].tolist(),
+                              counts[:, rank].tolist()).numpy()
+    every = dist.allgather_ragged(rows.reshape(-1)).reshape(-1, EXCHANGE_L)
+    start = np.r_[0, np.cumsum(counts.sum(1))]
+    plain = np.concatenate([every[start[s] + counts[s, :rank].sum():][
+        :counts[s, rank]] for s in range(world)])
+    np.savez(job["out"].format(rank=rank), a2a=got, allgather=plain)
+    return {"rows": len(got)}
+
+
+def _mesh_errors(rank, world):
+    import torch
+    from minicom_tpu_torch.parallel import mesh
+    rows = np.random.default_rng(rank).integers(0, 4, (20, 30), np.uint8)
+    calls = [(rows.astype(np.int64) if rank == 1 else rows, 17),
+             (rows[:, :29].copy() if rank == 1 else rows, 17), (rows, 0)]
+    raised = []
+    for codes, k in calls:
+        try:
+            mesh.sharded_cluster_step(torch.from_numpy(codes), k,
+                                      20 * world * 60)
+            raised.append(None)
+        except ValueError as e:
+            raised.append([type(e).__name__, str(e)])
+    return {"raised": raised}
+
+
 def _compress(rank, job):
     from minicom_tpu_torch import CompressorConfig, compressor
     from minicom_tpu_torch.ops import cuda
@@ -211,6 +306,12 @@ def main():
                 res = _sketch(rank, job)
             elif job["op"] == "reads":
                 res = _reads(rank, job)
+            elif job["op"] == "mesh":
+                res = _mesh(rank, world, job)
+            elif job["op"] == "exchange":
+                res = _exchange(rank, world, job)
+            elif job["op"] == "mesh_errors":
+                res = _mesh_errors(rank, world)
             else:
                 res = _compress(rank, job)
             print("JOB " + json.dumps(res), flush=True)

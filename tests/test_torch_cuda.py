@@ -7,7 +7,8 @@ card (which has no jax, so without the repo conftest):
 
 (the second: the rANS kernels alone, seconds; ``-k sketch`` and ``-k
 consensus`` take the other kernels alone, ``-k sketch_reads`` the read
-minimizer, ``-k step`` the fused cluster step).
+minimizer, ``-k step`` the fused cluster step, ``-k mesh`` the sharded step
+in two ranks on one card).
 """
 
 import importlib.util
@@ -401,6 +402,54 @@ def test_step_refuses_long_reads_on_the_card(dev):
     codes = torch.zeros((4, 300), dtype=torch.uint8, device=dev)
     with pytest.raises(ValueError):
         step.cluster_step(codes, 31, 4 * 600)
+
+
+MESH_CASES = _step_cases.mesh_cases()
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """Two ranks on cuda:0 (gloo) run the sharded step on every case of
+    ``mesh_cases``: per rank, its outputs and each case's launches and
+    stats."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    worker = _load_helper("_torch_dist_worker")
+    tmp = str(tmp_path_factory.mktemp("mesh"))
+    cases = os.path.join(tmp, "cases.npz")
+    worker.write_mesh_cases(cases, MESH_CASES, _step_cases.mesh_split)
+    res = worker.run_group(tmp, "m2", 2, [dict(
+        op="mesh", cases=cases, device="cuda:0",
+        out=os.path.join(tmp, "m2_{rank}.npz"))])
+    ranks = []
+    for r in range(2):
+        with np.load(os.path.join(tmp, f"m2_{r}.npz")) as z:
+            ranks.append(({f: z[f] for f in z.files},
+                          worker.job_results(res, r)[0]))
+    return ranks
+
+
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_mesh_two_ranks_equal_one_card(dev, mesh_ranks, name):
+    """The rank-order concatenation of the two ranks' outputs equals the
+    one-card cluster_step's, consensus and coverage whole on each rank;
+    each rank launched kernel (c) and the keys kernel once if it holds
+    rows, the segments kernel once, and the vote once if it owns a segment
+    with columns below span_cols, and nothing else."""
+    codes, k, span = MESH_CASES[name]
+    want = _step_once(torch.from_numpy(codes).to(dev), k, span)
+    for i, w in enumerate(want):
+        parts = [outs[f"{name}/{i}"] for outs, _ in mesh_ranks]
+        for g in (parts if i < 2 else [np.concatenate(parts)]):
+            np.testing.assert_array_equal(g, w)
+    for _, res in mesh_ranks:
+        owned = res[name]["owned"]
+        held = int(owned["rows"] > 0)
+        assert res[name]["launched"] == {x: n for x, n in (
+            ("mtc_sketch_reads", held), ("mtc_step_keys", held),
+            ("mtc_step_segments", 1),
+            ("mtc_step_vote", int(owned["voted"]))) if n}
+        assert set(res[name]["device_ms"]) >= {"sort", "segments"}
 
 
 def _payload(name):
