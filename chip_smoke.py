@@ -1913,8 +1913,8 @@ def phase7_cluster_step(dev, fq, report):
                                                    4096 * 2 * L)}
     del deep, few, odd
     seg = pieces["seg"]
-    agg = torch.empty(2 * (-(-n // step.SEG_BLOCK)), dtype=torch.int32,
-                      device=dev)
+    scratch = torch.empty(step.seg_scratch_words(n), dtype=torch.int32,
+                          device=dev)
     small = dict(
         step=_ms(lambda: step.cluster_step(c, k, span_n), 10),
         plain=_ms(lambda: step._cluster_step_plain(c, k, span_n), 3),
@@ -1923,7 +1923,7 @@ def phase7_cluster_step(dev, fq, report):
             pieces["mz"])),
         mtc_step_segments=_graph_ms(lambda: cuda.launch(
             "mtc_step_segments", pieces["skey"], pieces["order"],
-            pieces["mz"], n, agg, *seg)),
+            pieces["mz"], n, scratch, *seg)),
         mtc_step_vote=_vote_ms(c, seg, span_n),
         plain_mtc_step_keys=_ms(lambda: step._keys_plain(c, pieces["sk"],
                                                          k), 5),
@@ -1932,7 +1932,7 @@ def phase7_cluster_step(dev, fq, report):
         plain_mtc_step_vote=_ms(lambda: step._vote_plain(
             c, *pieces["seg_plain"][:3], pieces["seg_plain"][4], span_n),
             3))
-    del pieces, seg, agg
+    del pieces, seg, scratch
     print(f"[7] cluster_step {n} x {L}, k={k}, span {span_n}: equal to the "
           "plain step, all five outputs, and each kernel to its plain "
           f"version; (AT)^50 and copies at k=30 equal too; ms "
@@ -1969,8 +1969,8 @@ def phase7_cluster_step(dev, fq, report):
     pieces, e = _step_pieces(c_all, k)
     err = max(err, e)
     seg = pieces["seg"]
-    agg = torch.empty(2 * (-(-N // step.SEG_BLOCK)), dtype=torch.int32,
-                      device=dev)
+    scratch = torch.empty(step.seg_scratch_words(N), dtype=torch.int32,
+                          device=dev)
     full = dict(
         step=_ms(lambda: step.cluster_step(c_all, k, span), 10),
         mtc_sketch_reads=_graph_ms(lambda: cuda.launch(
@@ -1982,7 +1982,7 @@ def phase7_cluster_step(dev, fq, report):
         sort=_ms(lambda: torch.sort(pieces["key"], stable=True), 10),
         mtc_step_segments=_graph_ms(lambda: cuda.launch(
             "mtc_step_segments", pieces["skey"], pieces["order"],
-            pieces["mz"], N, agg, *seg)),
+            pieces["mz"], N, scratch, *seg)),
         mtc_step_vote=_vote_ms(c_all, seg, span),
         plain_mtc_step_keys=_ms(lambda: step._keys_plain(
             c_all, pieces["sk"], k), 5),
@@ -2009,7 +2009,7 @@ def phase7_cluster_step(dev, fq, report):
             plain_ms=full.get("plain_" + name, small["plain_" + name]),
             plain_reads=N if "plain_" + name in full else n,
             **bounds[name])
-    del pieces, seg, agg, c_all
+    del pieces, seg, scratch, c_all
     torch.cuda.empty_cache()
     print(f"[7] phase 7 took {time.perf_counter() - t_start:.1f} s")
     return {x: made[x] for x in STEP_KERNELS}, store

@@ -19,15 +19,36 @@
 //   chosen k-mer except at k = 1, start 0, strand 0, where the rebuild gives
 //   the same answer.
 //
-// mtc_step_segments: two kernels over the sorted keys, in blocks of
-//   kSegBlock items. A segment starts where the key changes; both strands of
-//   a canonical k-mer share it. The segmented operator (heads, max since the
-//   last head) is associative, so the first kernel reduces each block to one
-//   pair (and writes order as int32 and mz in sorted order), and the second
-//   seeds each block with the reduction of the blocks before it, scans, and
-//   writes seg_id, each segment's first member and the segment's max mpos
-//   (at its last member). The last item writes first[nseg] = N and nseg into
-//   first[N + 1]: the count stays on the card.
+// mtc_step_segments: the new_seg, cumsum and seg_max lines of the JAX
+//   step (minicom_tpu/ops/step.py:50-57). A segment starts where the key
+//   changes; both strands of a canonical k-mer share it. seg_id, each
+//   segment's first member (at its head) and its max mpos (at its last
+//   member) are a scan of (heads, max mpos since the last head), an
+//   associative operator; the last item writes first[nseg] = N and nseg
+//   into first[N + 1]: the count stays on the card. Bound: bytes, 32 N +
+//   8 nseg (skey, order and the gathered mz read once; order32, smz and
+//   seg_id written; first and seg_max once a segment). One pass, one kernel
+//   after a memset of the status words: a block takes the next tile of
+//   kSegTile items from a ticket (so every tile it waits on has started); a
+//   warp owns kSegRows rows of 32 consecutive items, one a lane, so each
+//   load and store of skey, order, order32, smz and seg_id is one
+//   contiguous line a warp, marked streaming (evict first) so that mz (20
+//   MB at 5M) stays in L2 for its random gathers. A thread issues its order
+//   and key loads, then all its gathers of mz, before it uses any. Heads
+//   compare a key with its left neighbour by a shuffle (a key loaded just
+//   before and just after each warp's items); a row is scanned by a ballot
+//   (heads) and five shuffles (the max, stopped at the lane's segment
+//   start), the rows in order, the warps through shared memory. The tile
+//   then publishes its reduction and finds its prefix by decoupled
+//   look-back (Merrill and Garland 2016): 32 predecessors' status words a
+//   step, each a flag and (h, m) in 64 bits, back to the nearest that holds
+//   its inclusive prefix; then it publishes its own. Each input is read
+//   once. What holds it near 57% of its bound: a tile's life is a chain
+//   (ticket, loads, gathers, scan, look-back, stores) with no loads in
+//   flight after its gathers; 8 rows and three blocks an SM (72 registers)
+//   beat 16 rows and two, 8 rows and four, 512- and 128-thread blocks,
+//   128 status words a look-back step, and persistent blocks that prefetch
+//   their next tile into L2 (PERF.md).
 //
 // mtc_step_vote: segment g owns columns [g 2L, g 2L + 2L) (its offsets lie
 //   in [0, L - k]). A block takes a tile of G consecutive segment slots, so
@@ -56,9 +77,10 @@
 //   barriers for ~20 members; 64 registers allow 8 blocks an SM. Tiles
 //   first and zeros after, 256-thread blocks, 32 registers, and the two
 //   kinds alternating by block were each slower (PERF.md).
-// Bound: the outputs. consensus (span bytes) and coverage (4 span bytes)
-// are 5 of the ~5.1 bytes a column the step moves at span = N 2L; the rows
-// are read once more by the vote, the metadata a few words a read.
+// Bound of the step: the outputs. consensus (span bytes) and coverage (4
+// span bytes) are 5 of the ~5.1 bytes a column the step moves at span = N
+// 2L; the rows are read once more by the vote, the metadata a few words a
+// read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -104,8 +126,11 @@ step_keys_kernel(const uint8_t* __restrict__ codes, int L,
 
 constexpr int kSegThreads = 256;
 constexpr int kSegWarps = kSegThreads / 32;
-constexpr int kSegItems = 16;   // consecutive items a thread scans
-constexpr int kSegBlock = kSegThreads * kSegItems;
+constexpr int kSegRows = 8;                         // rows of 32 items a warp
+constexpr int kSegWarpItems = 32 * kSegRows;
+constexpr int kSegTile = kSegThreads * kSegRows;    // items a tile
+constexpr unsigned long long kSegAggregate = 1ULL << 62;   // look-back flags
+constexpr unsigned long long kSegInclusive = 1ULL << 63;
 
 // (heads, max mpos since the last head); identity (0, -1)
 struct Seg {
@@ -116,137 +141,166 @@ __device__ __forceinline__ Seg combine(Seg a, Seg b) {
     return Seg{a.h + b.h, b.h ? b.m : max(a.m, b.m)};
 }
 
-// An item as staged: mpos << 1 | head, or -1 past N
-__device__ __forceinline__ Seg unpack(int x) {
-    return x < 0 ? Seg{0, -1} : Seg{x & 1, x >> 1};
+// A tile's status word: a flag, h in bits 31-61 and m in bits 0-30 (a
+// published Seg covers at least one item and mz >= 0, so 0 <= m < 2^30;
+// h <= N < 2^31).
+__device__ __forceinline__ unsigned long long seg_word(Seg s,
+                                                       unsigned long long f) {
+    return f | (unsigned long long)(unsigned)s.h << 31 |
+           ((unsigned)s.m & 0x7FFFFFFFu);
 }
 
-// Staging index with one word of skew every 32: a thread's kSegItems
-// consecutive items then lie in 32 banks across the warp.
-__device__ __forceinline__ int skew(int j) { return j + (j >> 5); }
-
-// The exclusive scan of one Seg a thread, in thread order; *total gets the
-// block's reduction. Every thread of the block calls it.
-__device__ Seg block_scan(Seg v, Seg* total, Seg* sh) {
-    const unsigned full = 0xFFFFFFFFu;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    Seg inc = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-        const Seg up{__shfl_up_sync(full, inc.h, o),
-                     __shfl_up_sync(full, inc.m, o)};
-        if (lane >= o) inc = combine(up, inc);
-    }
-    if (lane == 31) sh[warp] = inc;
-    __syncthreads();
-    if (warp == 0) {
-        Seg w = lane < kSegWarps ? sh[lane] : Seg{0, -1};
-#pragma unroll
-        for (int o = 1; o < kSegWarps; o <<= 1) {
-            const Seg up{__shfl_up_sync(full, w.h, o),
-                         __shfl_up_sync(full, w.m, o)};
-            if (lane >= o) w = combine(up, w);
-        }
-        if (lane < kSegWarps) sh[lane] = w;
-    }
-    __syncthreads();
-    const Seg before{__shfl_up_sync(full, inc.h, 1),
-                     __shfl_up_sync(full, inc.m, 1)};
-    Seg out = lane ? before : Seg{0, -1};
-    if (warp) out = combine(sh[warp - 1], out);
-    *total = sh[kSegWarps - 1];
-    __syncthreads();
-    return out;
+__device__ __forceinline__ Seg seg_of(unsigned long long w) {
+    return Seg{(int)((w >> 31) & 0x7FFFFFFFu), (int)(w & 0x7FFFFFFFu)};
 }
 
-// The thread's items, reduced in order.
-__device__ __forceinline__ Seg thread_reduce(const int* item) {
-    Seg a{0, -1};
-    const int p0 = (int)threadIdx.x * kSegItems;
-#pragma unroll
-    for (int p = 0; p < kSegItems; ++p)
-        a = combine(a, unpack(item[skew(p0 + p)]));
-    return a;
-}
-
-__global__ void __launch_bounds__(kSegThreads)
-seg_reduce_kernel(const int64_t* __restrict__ skey,
-                  const int64_t* __restrict__ order,
-                  const int32_t* __restrict__ mz, int64_t N,
-                  int32_t* __restrict__ order32, int32_t* __restrict__ smz,
-                  int2* __restrict__ agg) {
-    __shared__ int item[kSegBlock + kSegBlock / 32];
-    __shared__ Seg sh[kSegWarps];
-    const int64_t base = blockIdx.x * (int64_t)kSegBlock;
-    for (int j = threadIdx.x; j < kSegBlock; j += kSegThreads) {
-        const int64_t i = base + j;
-        int x = -1;
-        if (i < N) {
-            const int64_t o = order[i];
-            const int z = mz[o];
-            order32[i] = (int32_t)o;
-            smz[i] = z;
-            x = (z >> 1) << 1 | (i == 0 || skey[i] != skey[i - 1]);
-        }
-        item[skew(j)] = x;
-    }
-    __syncthreads();
-    Seg total;
-    block_scan(thread_reduce(item), &total, sh);
-    if (threadIdx.x == 0) agg[blockIdx.x] = make_int2(total.h, total.m);
-}
-
-__global__ void __launch_bounds__(kSegThreads)
+// Warp w of a tile owns items w0 .. w0 + kSegWarpItems, lane l item w0 +
+// 32 j + l of row j. status: a zeroed word a tile, then the ticket.
+__global__ void __launch_bounds__(kSegThreads, 3)
 seg_scan_kernel(const int64_t* __restrict__ skey,
-                const int32_t* __restrict__ smz, int64_t N,
-                const int2* __restrict__ agg, int32_t* __restrict__ seg_id,
+                const int64_t* __restrict__ order,
+                const int32_t* __restrict__ mz, int64_t N,
+                unsigned long long* status, int32_t* __restrict__ order32,
+                int32_t* __restrict__ smz, int32_t* __restrict__ seg_id,
                 int32_t* __restrict__ first, int32_t* __restrict__ seg_max) {
-    __shared__ int item[kSegBlock + kSegBlock / 32];
-    __shared__ int sid[kSegBlock + kSegBlock / 32];
-    __shared__ Seg sh[kSegWarps];
-    const int64_t base = blockIdx.x * (int64_t)kSegBlock;
+    const unsigned full = 0xFFFFFFFFu;
+    __shared__ Seg s_warp[kSegWarps];
+    __shared__ Seg s_before;
+    __shared__ int s_tile;
+    if (threadIdx.x == 0)
+        s_tile = (int)atomicAdd(&status[gridDim.x], 1ULL);
+    __syncthreads();
+    const int tile = s_tile;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int64_t w0 = (int64_t)tile * kSegTile + warp * kSegWarpItems;
 
-    // the blocks before this one, each thread a run of them in order
-    const int nb = blockIdx.x, tid = threadIdx.x;
-    const int per = (nb + kSegThreads - 1) / kSegThreads;
-    Seg pre{0, -1};
-    for (int q = tid * per; q < min(nb, (tid + 1) * per); ++q) {
-        const int2 a = agg[q];
-        pre = combine(pre, Seg{a.x, a.y});
+    // every load first: order and the keys, the keys just before and just
+    // after the warp's items, then the gathers of mz
+    int64_t o[kSegRows], key[kSegRows];
+#pragma unroll
+    for (int j = 0; j < kSegRows; ++j) {
+        const int64_t i = w0 + 32 * j + lane;
+        o[j] = i < N ? __ldcs(order + i) : 0;
+        key[j] = i < N ? __ldcs(skey + i) : 0;
     }
-    Seg before;
-    block_scan(pre, &before, sh);
+    int64_t edge = 0;
+    if (lane == 0 && w0 > 0 && w0 <= N) edge = __ldg(skey + w0 - 1);
+    if (lane == 31 && w0 + kSegWarpItems < N)
+        edge = __ldg(skey + w0 + kSegWarpItems);
+    int z[kSegRows];
+#pragma unroll
+    for (int j = 0; j < kSegRows; ++j)
+        z[j] = w0 + 32 * j + lane < N ? __ldg(mz + o[j]) : 0;
+#pragma unroll
+    for (int j = 0; j < kSegRows; ++j) {
+        const int64_t i = w0 + 32 * j + lane;
+        if (i < N) {
+            __stcs(order32 + i, (int32_t)o[j]);
+            __stcs(smz + i, z[j]);
+        }
+    }
 
-    for (int j = threadIdx.x; j < kSegBlock; j += kSegThreads) {
-        const int64_t i = base + j;
-        item[skew(j)] = i < N ? (smz[i] >> 1) << 1 |
-                                    (i == 0 || skey[i] != skey[i - 1])
-                              : -1;
+    // heads: a row's mask, the same in every lane
+    unsigned hm[kSegRows];
+    int64_t prev0 = edge;   // lane 0's left neighbour
+#pragma unroll
+    for (int j = 0; j < kSegRows; ++j) {
+        const int64_t i = w0 + 32 * j + lane;
+        const int64_t left = __shfl_sync(full, key[j], (lane + 31) & 31);
+        const int64_t prev = lane ? left : prev0;
+        hm[j] = __ballot_sync(full, i < N && (i == 0 || key[j] != prev));
+        prev0 = left;   // in lane 0: row j's last key
+    }
+    const bool after = w0 + kSegWarpItems >= N ||
+                       edge != key[kSegRows - 1];   // read in lane 31
+
+    // each row's segmented scan, then the rows in order: loc[j] is the item's
+    // inclusive Seg from the warp's first item
+    const unsigned upto = (2u << lane) - 1;
+    Seg loc[kSegRows];
+    Seg run{0, -1};
+#pragma unroll
+    for (int j = 0; j < kSegRows; ++j) {
+        const unsigned mine = hm[j] & upto;
+        const int start = mine ? 31 - __clz(mine) : 0;
+        int m = w0 + 32 * j + lane < N ? z[j] >> 1 : -1;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int up = __shfl_up_sync(full, m, d);
+            if (lane - d >= start) m = max(m, up);
+        }
+        loc[j] = combine(run, Seg{__popc(mine), m});
+        run = combine(run, Seg{__popc(hm[j]), __shfl_sync(full, m, 31)});
+    }
+    if (lane == 0) s_warp[warp] = run;
+    __syncthreads();
+
+    if (warp == 0) {
+        Seg agg{0, -1};
+#pragma unroll
+        for (int q = 0; q < kSegWarps; ++q) agg = combine(agg, s_warp[q]);
+        Seg before{0, -1};
+        if (tile == 0) {
+            if (lane == 0)
+                atomicExch(&status[0], seg_word(agg, kSegInclusive));
+        } else {
+            if (lane == 0)
+                atomicExch(&status[tile], seg_word(agg, kSegAggregate));
+            // 32 predecessors a step, nearest in lane 0, to the nearest one
+            // that holds its inclusive prefix; their Segs combined in order,
+            // lane 31 first
+            for (int top = tile - 1;; top -= 32) {
+                const int p = top - lane;
+                unsigned long long v = p >= 0 ? 0ULL : kSegInclusive;
+                do {
+                    if (v == 0) {
+                        v = *reinterpret_cast<volatile unsigned long long*>(
+                            &status[p]);
+                    }
+                } while (__ballot_sync(full, v == 0));
+                const unsigned incl =
+                    __ballot_sync(full, (v & kSegInclusive) != 0);
+                const int last = incl ? __ffs(incl) - 1 : 31;
+                Seg c = lane <= last && p >= 0 ? seg_of(v) : Seg{0, -1};
+#pragma unroll
+                for (int d = 1; d < 32; d <<= 1) {
+                    const Seg up{__shfl_down_sync(full, c.h, d),
+                                 __shfl_down_sync(full, c.m, d)};
+                    if (lane + d < 32) c = combine(up, c);
+                }
+                before = combine(Seg{__shfl_sync(full, c.h, 0),
+                                     __shfl_sync(full, c.m, 0)},
+                                 before);
+                if (incl) break;
+            }
+            if (lane == 0) {
+                atomicExch(&status[tile],
+                           seg_word(combine(before, agg), kSegInclusive));
+            }
+        }
+        if (lane == 0) s_before = before;
     }
     __syncthreads();
-    Seg total;
-    Seg run = combine(before, block_scan(thread_reduce(item), &total, sh));
-    const int p0 = (int)threadIdx.x * kSegItems;
-    for (int p = p0; p < p0 + kSegItems; ++p) {
-        const int64_t i = base + p;
+
+    Seg base = s_before;
+    for (int q = 0; q < warp; ++q) base = combine(base, s_warp[q]);
+#pragma unroll
+    for (int j = 0; j < kSegRows; ++j) {
+        const int64_t i = w0 + 32 * j + lane;
         if (i >= N) break;
-        const int x = item[skew(p)];
-        run = combine(run, unpack(x));
-        const int g = run.h - 1;
-        sid[skew(p)] = g;
-        if (x & 1) first[g] = (int32_t)i;
-        const bool tail = i + 1 >= N ||
-                          (p + 1 < kSegBlock ? (item[skew(p + 1)] & 1)
-                                             : skey[i + 1] != skey[i]);
-        if (tail) seg_max[g] = run.m;
+        const Seg s = combine(base, loc[j]);
+        const int g = s.h - 1;
+        __stcs(seg_id + i, g);
+        if ((hm[j] >> lane) & 1) first[g] = (int32_t)i;
+        const bool next_head =
+            lane < 31 ? (hm[j] >> (lane + 1)) & 1
+                      : (j + 1 < kSegRows ? hm[j + 1] & 1 : after);
+        if (i + 1 >= N || next_head) seg_max[g] = s.m;
         if (i == N - 1) {
             first[g + 1] = (int32_t)N;
             first[N + 1] = g + 1;
         }
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < kSegBlock && base + j < N; j += kSegThreads)
-        seg_id[base + j] = sid[skew(j)];
 }
 
 // ---- vote
@@ -547,24 +601,29 @@ int mtc_step_keys(const uint8_t* codes, int64_t L, const uint32_t* sk,
     return (int)cudaGetLastError();
 }
 
-// skey, order: torch.sort's output on key; mz: [N] from mtc_step_keys;
-// agg: [2 * ceil(N / kSegBlock)] int32 scratch. order32, smz (mz in sorted
-// order), seg_id [N] out; first [N + 2] (first[0 .. nseg], nseg at N + 1)
-// and seg_max [N] (0 .. nseg - 1) out.
+// skey, order: torch.sort's output on key; mz: [N] from mtc_step_keys (every
+// value >= 0); scratch: [2 * (ceil(N / kSegTile) + 1)] int32, 8-byte
+// aligned, zeroed here on the stream (a status word a tile, the ticket).
+// order32, smz (mz in sorted order), seg_id [N] out; first [N + 2] (first[0
+// .. nseg], nseg at N + 1) and seg_max [N] (0 .. nseg - 1) out.
 int mtc_step_segments(const int64_t* skey, const int64_t* order,
-                      const int32_t* mz, int64_t N, int32_t* agg,
+                      const int32_t* mz, int64_t N, int32_t* scratch,
                       int32_t* order32, int32_t* smz, int32_t* seg_id,
                       int32_t* first, int32_t* seg_max, void* stream) {
     if (N <= 0) return 0;
-    if (N > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-    const unsigned blocks = (unsigned)((N + kSegBlock - 1) / kSegBlock);
-    int2* a = reinterpret_cast<int2*>(agg);
-    seg_reduce_kernel<<<blocks, kSegThreads, 0, (cudaStream_t)stream>>>(
-        skey, order, mz, N, order32, smz, a);
-    const cudaError_t e = cudaGetLastError();
+    if (N > 0x7FFFFFFF || (reinterpret_cast<uintptr_t>(scratch) & 7))
+        return (int)cudaErrorInvalidValue;
+    const int64_t tiles = (N + kSegTile - 1) / kSegTile;
+    unsigned long long* status =
+        reinterpret_cast<unsigned long long*>(scratch);
+    const cudaError_t e = cudaMemsetAsync(
+        status, 0, (size_t)(tiles + 1) * sizeof(unsigned long long),
+        (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
-    seg_scan_kernel<<<blocks, kSegThreads, 0, (cudaStream_t)stream>>>(
-        skey, smz, N, a, seg_id, first, seg_max);
+    seg_scan_kernel<<<(unsigned)tiles, kSegThreads, 0,
+                      (cudaStream_t)stream>>>(skey, order, mz, N, status,
+                                              order32, smz, seg_id, first,
+                                              seg_max);
     return (int)cudaGetLastError();
 }
 

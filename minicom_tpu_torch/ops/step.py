@@ -31,7 +31,16 @@ COL_MAX = (1 << 31) - 1   # columns are int32, as in the JAX program
 # The most columns of a vote tile: 16 bytes of counts a column, so a tile of
 # ~25 KB lets eight 256-thread blocks share an SM.
 TILE_COLS = 1536
-SEG_BLOCK = 4096   # items a block of the segment scan (csrc/step.cu)
+SEG_ROWS = 8   # rows of 32 items a warp of the segment scan (csrc/step.cu)
+SEG_TILE = 8 * 32 * SEG_ROWS   # items a tile: 8 warps
+
+
+def seg_scratch_words(N: int) -> int:
+    """int32 words of ``mtc_step_segments``' scratch for N items: a 64-bit
+    status word a tile of SEG_TILE items, then the tiles' ticket. The entry
+    zeroes it on the stream, so one buffer serves any number of calls (a
+    CUDA graph's replays too)."""
+    return 2 * (-(-N // SEG_TILE) + 1)
 
 
 def tile_slots(L: int) -> int:
@@ -154,13 +163,13 @@ def _segments(skey, order, mz):
     [N + 2] (first[0 .. nseg] as ``_segments_plain``'s, nseg at N + 1),
     seg_max [N] (0 .. nseg - 1 written))."""
     N = len(skey)
-    blocks = -(-N // SEG_BLOCK)
-    buf = torch.empty(2 * blocks + 5 * N + 2, dtype=torch.int32,
+    words = seg_scratch_words(N)   # first in the buffer: 8-byte aligned
+    buf = torch.empty(words + 5 * N + 2, dtype=torch.int32,
                       device=skey.device)
-    agg, order32, smz, seg_id, first, seg_max = buf.split(
-        [2 * blocks, N, N, N, N + 2, N])
-    cuda.launch("mtc_step_segments", skey, order, mz, N, agg, order32, smz,
-                seg_id, first, seg_max)
+    scratch, order32, smz, seg_id, first, seg_max = buf.split(
+        [words, N, N, N, N + 2, N])
+    cuda.launch("mtc_step_segments", skey, order, mz, N, scratch, order32,
+                smz, seg_id, first, seg_max)
     return order32, smz, seg_id, first, seg_max
 
 

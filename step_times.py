@@ -7,18 +7,20 @@ timed at the main path's shapes, beside any other ``csrc/step.cu``.
 Runs chip_smoke.py's phase 0 (the card's name and power limit, the build),
 makes N_READS reads (default 5,000,000: chip_smoke's phase 2 set,
 ``bench.make_dataset``, seed 7) and their read store (N substituted by
-``classify``), and runs ``ops/step.py::cluster_step``'s pieces on it once
-(k = 31, span_cols N 2L). Then builds the shipped ``csrc/step.cu`` and
-each NAME=PATH given (another step.cu with the same three entry points, the
-parent commit's, say, written into a gitignored directory) as shared
-libraries of their own (one nvcc each, all at once, ``-Xptxas -v``), holds
-each library's three kernels equal to the module's outputs on the same
-device tensors, and times each kernel from CUDA graphs of 20 launches
-(median of 10 replays), the libraries in turns: in order, then reversed.
+``classify``). Builds the shipped ``csrc/step.cu`` and each NAME=PATH given
+(another step.cu with the same three entry points, the parent commit's,
+say, written into a gitignored directory) as shared libraries of their own
+(one nvcc each, all at once, ``-Xptxas -v``). Then, on the store's first
+2^20 reads (chip_smoke's phase 7 set) and on all of it (k = 31, span_cols
+N 2L): runs ``ops/step.py::cluster_step``'s pieces once, holds each
+library's three kernels equal to the module's outputs on the same device
+tensors (the segments' outputs filled with -7 first), and times each kernel
+from CUDA graphs of 20 launches (median of 10 replays), the libraries in
+turns: in order, then reversed; the step and the sort from CUDA events.
 Prints each library's registers and spills and its ms per kernel and turn;
-the last line is the JSON of those with the bounds of the kernels' work
-(``chip_smoke._step_bounds``). Any failure ends the run with a traceback
-and a non-zero exit.
+the last line is the JSON list, a size each, of those with the bounds of
+the kernels' work (``chip_smoke._step_bounds``). Any failure ends the run
+with a traceback and a non-zero exit.
 """
 
 import ctypes
@@ -82,6 +84,65 @@ def call(fn, *args):
         raise RuntimeError(f"CUDA error {err}")
 
 
+def time_at(c, libs) -> dict:
+    """Each library's three kernels on the reads ``c`` (k = 31, span_cols N
+    2L): held equal to the module's outputs, then timed from CUDA graphs in
+    turns (in order, then reversed); with the step's and the sort's ms
+    (CUDA events, medians of 10) and the bounds of the kernels' work."""
+    N, L = c.shape
+    k, span, G = 31, N * 2 * L, step.tile_slots(L)
+    rids = torch.arange(N, dtype=torch.int32, device=c.device)
+    sk = sketch.sketch_reads_device(c, rids, k)
+    key, mz = step._keys(c, sk, k)
+    skey, order = torch.sort(key, stable=True)
+    seg = step._segments(skey, order, mz)
+    want = (key, mz) + seg + step._vote(c, *seg, span)
+    nseg = int(seg[3][N + 1])
+
+    # each library's outputs, into buffers shared by all of them; the
+    # segments' scratch four times the shipped size, room for a variant
+    # with tiles down to a quarter of SEG_TILE (or the older two-pass scan)
+    keys = (torch.empty_like(key), torch.empty_like(mz))
+    segs = tuple(torch.empty_like(x) for x in seg)
+    scratch = torch.empty(4 * step.seg_scratch_words(N), dtype=torch.int32,
+                          device=c.device)
+    outs = tuple(torch.empty_like(x) for x in want[7:])
+    runs = {name: {
+        "mtc_step_keys": lambda f=f: call(f["mtc_step_keys"], c, L, sk, N,
+                                          k, *keys),
+        "mtc_step_segments": lambda f=f: call(f["mtc_step_segments"], skey,
+                                              order, mz, N, scratch,
+                                              *segs),
+        "mtc_step_vote": lambda f=f: call(f["mtc_step_vote"], c, L, *seg, N,
+                                          G, span, *outs),
+    } for name, f in libs.items()}
+    for name, run in runs.items():
+        for out in segs:
+            out.fill_(-7)
+        for fn in run.values():
+            fn()
+        got = keys + segs + outs
+        for i, (g, w) in enumerate(zip(got, want)):
+            m = nseg + 1 if i == 5 else (nseg if i == 6 else len(w))
+            if not torch.equal(g[:m], w[:m]) or (
+                    i == 5 and not torch.equal(g[N + 1], w[N + 1])):
+                raise AssertionError(f"{name}: output {i} differs")
+    times = {name: {kn: [] for kn in KERNELS} for name in runs}
+    for name in list(runs) + list(reversed(runs)):
+        for kn, fn in runs[name].items():
+            times[name][kn].append(chip_smoke._graph_ms(fn))
+        print(f"[step] {N} reads, {name}: " + json.dumps(
+            {kn: t[-1] for kn, t in times[name].items()}))
+    rebuilt = int((sk[2] == 0).sum())
+    return {"reads": N, "segments": nseg,
+            "step_ms": chip_smoke._ms(lambda: step.cluster_step(c, k, span),
+                                      10),
+            "sort_ms": chip_smoke._ms(lambda: torch.sort(key, stable=True),
+                                      10),
+            "ms": times, "bounds": chip_smoke._step_bounds(
+                N, L, k, span, nseg, rebuilt)}
+
+
 def main() -> int:
     n_reads = int(sys.argv[1]) if len(sys.argv) > 1 else chip_smoke.N_READS
     given = dict(a.split("=", 1) for a in sys.argv[2:])
@@ -97,49 +158,8 @@ def main() -> int:
             codes.shape[1])).codes_sub
         libs = build({"shipped": SRC, **given}, tmp)
     c = torch.from_numpy(store).to(dev)
-    N, L = c.shape
-    k, span, G = 31, N * 2 * L, step.tile_slots(L)
-    rids = torch.arange(N, dtype=torch.int32, device=dev)
-    sk = sketch.sketch_reads_device(c, rids, k)
-    key, mz = step._keys(c, sk, k)
-    skey, order = torch.sort(key, stable=True)
-    seg = step._segments(skey, order, mz)
-    want = (key, mz) + seg + step._vote(c, *seg, span)
-    nseg = int(seg[3][N + 1])
-
-    # each library's outputs, into buffers shared by all of them
-    keys = (torch.empty_like(key), torch.empty_like(mz))
-    segs = tuple(torch.empty_like(x) for x in seg)
-    agg = torch.empty(2 * (-(-N // step.SEG_BLOCK)), dtype=torch.int32,
-                      device=dev)
-    outs = tuple(torch.empty_like(x) for x in want[7:])
-    runs = {name: {
-        "mtc_step_keys": lambda f=f: call(f["mtc_step_keys"], c, L, sk, N,
-                                          k, *keys),
-        "mtc_step_segments": lambda f=f: call(f["mtc_step_segments"], skey,
-                                              order, mz, N, agg, *segs),
-        "mtc_step_vote": lambda f=f: call(f["mtc_step_vote"], c, L, *seg, N,
-                                          G, span, *outs),
-    } for name, f in libs.items()}
-    for name, run in runs.items():
-        for fn in run.values():
-            fn()
-        got = keys + segs + outs
-        for i, (g, w) in enumerate(zip(got, want)):
-            m = nseg + 1 if i == 5 else (nseg if i == 6 else len(w))
-            if not torch.equal(g[:m], w[:m]):
-                raise AssertionError(f"{name}: output {i} differs")
-    times = {name: {kn: [] for kn in KERNELS} for name in runs}
-    for name in list(runs) + list(reversed(runs)):
-        for kn, fn in runs[name].items():
-            times[name][kn].append(chip_smoke._graph_ms(fn))
-        print(f"[step] {name}: " + json.dumps(
-            {kn: t[-1] for kn, t in times[name].items()}))
-    sort_ms = chip_smoke._ms(lambda: torch.sort(key, stable=True), 10)
-    rebuilt = int((sk[2] == 0).sum())
-    print(json.dumps({"reads": N, "segments": nseg, "sort_ms": sort_ms,
-                      "ms": times, "bounds": chip_smoke._step_bounds(
-                          N, L, k, span, nseg, rebuilt)}))
+    sizes = sorted({len(c), min(len(c), chip_smoke.STEP_SEG_READS)})
+    print(json.dumps([time_at(c[:n], libs) for n in sizes]))
     return 0
 
 

@@ -371,7 +371,7 @@ def test_step_kernels_match_plain(dev, name):
 
 def test_step_pieces_over_several_tiles_and_scan_blocks(dev):
     """20,000 genome reads, 6,000 of them one read (a segment across the
-    segment scan's blocks of 4096): each kernel against its plain version
+    segment scan's tiles): each kernel against its plain version
     on the same inputs, the vote at span_cols below, at and above N 2L."""
     rng = np.random.default_rng(5)
     N, L, k = 20_000, 100, 31
@@ -387,7 +387,7 @@ def test_step_pieces_over_several_tiles_and_scan_blocks(dev):
     got = step._segments(skey, order, mz)
     want = step._segments_plain(skey, order, mz)
     nseg = len(want[3]) - 1
-    assert N > 2 * step.SEG_BLOCK and nseg > 4 * step.tile_slots(L)
+    assert N > 2 * step.SEG_TILE and nseg > 4 * step.tile_slots(L)
     assert int(got[3][N + 1]) == nseg
     for g, w, n in zip(got, want, (N, N, N, nseg + 1, nseg)):
         np.testing.assert_array_equal(g[:n].cpu().numpy(), w.cpu().numpy())
@@ -396,6 +396,126 @@ def test_step_pieces_over_several_tiles_and_scan_blocks(dev):
         ref = step._vote_plain(c, *want[:3], want[4], span)
         for g, w in zip(out, ref):
             np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+def _seg_inputs(dev, sizes, seed=0):
+    """Sorted keys in segments of ``sizes`` (gaps between keys drawn at
+    random, some past 2^32), a random permutation and mz in [0, 2^9), on
+    the card."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.integers(1, 1 << 34, len(sizes), dtype=np.int64)
+    skey = np.repeat(np.cumsum(gaps), sizes)
+    N = len(skey)
+    return (torch.from_numpy(skey).to(dev),
+            torch.from_numpy(rng.permutation(N)).to(dev),
+            torch.from_numpy(rng.integers(0, 1 << 9, N, dtype=np.int32)
+                             ).to(dev))
+
+
+def _segments_equal_plain(got, skey, order, mz):
+    """mtc_step_segments' outputs against _segments_plain's: order32, smz,
+    seg_id, first[0 .. nseg], nseg at first[N + 1], seg_max[0 .. nseg)."""
+    N = len(skey)
+    want = step._segments_plain(skey, order, mz)
+    nseg = len(want[3]) - 1
+    assert int(got[3][N + 1]) == nseg
+    for g, w, n in zip(got, want, (N, N, N, nseg + 1, nseg)):
+        np.testing.assert_array_equal(g[:n].cpu().numpy(), w.cpu().numpy())
+
+
+def _seg_sizes(rng, N, most=5):
+    sizes = rng.integers(1, most + 1, N)
+    sizes = sizes[:np.searchsorted(np.cumsum(sizes), N) + 1]
+    sizes[-1] -= sizes.sum() - N
+    return sizes
+
+
+@pytest.mark.parametrize("N", [1, step.SEG_TILE - 1, step.SEG_TILE,
+                               step.SEG_TILE + 1])
+def test_segments_kernel_at_tile_edges(dev, N):
+    skey, order, mz = _seg_inputs(dev, _seg_sizes(np.random.default_rng(N),
+                                                  N), N)
+    _segments_equal_plain(step._segments(skey, order, mz), skey, order, mz)
+
+
+def test_segments_kernel_one_segment_over_three_tiles(dev):
+    """A segment from the middle of tile 0 to the middle of tile 3, among
+    segments of 1-5 members."""
+    T = step.SEG_TILE
+    rng = np.random.default_rng(3)
+    sizes = np.concatenate([_seg_sizes(rng, T // 2), [3 * T],
+                            _seg_sizes(rng, T)])
+    skey, order, mz = _seg_inputs(dev, sizes, 3)
+    got = step._segments(skey, order, mz)
+    _segments_equal_plain(got, skey, order, mz)
+    seg_id = got[2].cpu().numpy()
+    assert len(np.unique(seg_id[T // 2:T // 2 + 3 * T])) == 1
+
+
+def test_segments_kernel_every_read_its_own(dev):
+    N = 5 * step.SEG_TILE + 3
+    skey, order, mz = _seg_inputs(dev, np.ones(N, np.int64), 4)
+    got = step._segments(skey, order, mz)
+    _segments_equal_plain(got, skey, order, mz)
+    assert int(got[3][N + 1]) == N
+
+
+def test_segments_kernel_more_tiles_than_the_card_holds(dev):
+    """N odd and above 2^22: more tiles than the card runs at once, so
+    blocks start as others end, and a look-back meets predecessors that
+    have ended, that hold only their own reduction, and that have not
+    published yet."""
+    N = (1 << 22) + (1 << 20) + 1
+    prop = torch.cuda.get_device_properties(dev)
+    at_once = prop.multi_processor_count * (
+        prop.max_threads_per_multi_processor // 256)
+    assert -(-N // step.SEG_TILE) > at_once
+    skey, order, mz = _seg_inputs(dev, _seg_sizes(
+        np.random.default_rng(5), N, most=9), 5)
+    _segments_equal_plain(step._segments(skey, order, mz), skey, order, mz)
+
+
+def _seg_outputs(N, dev):
+    buf = torch.empty(step.seg_scratch_words(N) + 5 * N + 2,
+                      dtype=torch.int32, device=dev)
+    return buf.split([step.seg_scratch_words(N), N, N, N, N + 2, N])
+
+
+def test_segments_kernel_twice_on_one_scratch(dev):
+    """Two calls on one scratch and one set of outputs, other inputs the
+    second time: the status words and the ticket start afresh."""
+    N = 3 * step.SEG_TILE + 77
+    scratch, *outs = _seg_outputs(N, dev)
+    for seed in (6, 7):
+        skey, order, mz = _seg_inputs(dev, _seg_sizes(
+            np.random.default_rng(seed), N), seed)
+        cuda.launch("mtc_step_segments", skey, order, mz, N, scratch, *outs)
+        _segments_equal_plain(outs, skey, order, mz)
+
+
+def test_segments_kernel_graph_replays(dev):
+    """A CUDA graph of one launch, replayed five times on one scratch, the
+    outputs overwritten with -7 before each replay: the same outputs every
+    time, equal to the plain version's."""
+    N = 7 * step.SEG_TILE + 5
+    skey, order, mz = _seg_inputs(dev, _seg_sizes(
+        np.random.default_rng(8), N, most=40), 8)
+    scratch, *outs = _seg_outputs(N, dev)
+
+    def run():
+        cuda.launch("mtc_step_segments", skey, order, mz, N, scratch, *outs)
+
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    for _ in range(5):
+        for x in outs:
+            x.fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        _segments_equal_plain(outs, skey, order, mz)
 
 
 def test_step_refuses_long_reads_on_the_card(dev):

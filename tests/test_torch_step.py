@@ -2,10 +2,13 @@
 PyTorch version on the CPU, against the JAX package's ``cluster_step`` (an
 XLA program, no Pallas, run on the CPU), exactly; the plain version of
 each kernel against the whole step; and the kernels' work as numpy
-executors of the segment scan's blocks and the vote's implicit tiles (every
-column and every member written once)."""
+executors of the segment scan's tiles (ticket order, decoupled look-back)
+and the vote's implicit tiles (every column and every member written
+once)."""
 
 import functools
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -85,49 +88,156 @@ def _combine(a, b):
     return (a[0] + b[0], b[1] if b[0] else max(a[1], b[1]))
 
 
-def _run_segments(skey, order, mz, block):
-    """The two kernels of mtc_step_segments, block by block: each block's
-    (heads, max since the last head), then each block's scan seeded by the
-    blocks before it. Returns what the kernels write."""
+IDENT = (0, -1)
+
+
+def _tile_scan(key, smz, i0, lanes, rows, warps):
+    """One tile's work before its look-back, as mtc_step_segments' kernel
+    does it: warp w owns items i0 + w rows lanes on, lane l item r lanes + l
+    of row r; a head where a key differs from its left neighbour (lane 0 of
+    row 0 reads the key before the warp); each row scanned in log2(lanes)
+    steps, all lanes at once, that stop at the lane's segment start; the
+    rows in order, then the warps. Returns each item's inclusive pair from
+    the tile's first item, its head bit and the tile's pair."""
+    N = len(key)
+    heads, loc, warp_agg = {}, {}, []
+    for w in range(warps):
+        w0 = i0 + w * rows * lanes
+        run = IDENT
+        for r in range(rows):
+            idx = [w0 + r * lanes + ln for ln in range(lanes)]
+            mask = sum(1 << ln for ln, i in enumerate(idx)
+                       if i < N and (i == 0 or key[i] != key[i - 1]))
+            vals = [smz[i] >> 1 if i < N else -1 for i in idx]
+            start = [max([b for b in range(ln + 1) if mask >> b & 1],
+                         default=0) for ln in range(lanes)]
+            d = 1
+            while d < lanes:
+                vals = [max(v, vals[ln - d]) if ln - d >= start[ln] else v
+                        for ln, v in enumerate(vals)]
+                d *= 2
+            for ln, i in enumerate(idx):
+                upto = bin(mask & ((2 << ln) - 1)).count("1")
+                loc[i] = _combine(run, (upto, vals[ln]))
+                heads[i] = bool(mask >> ln & 1)
+            run = _combine(run, (bin(mask).count("1"), vals[-1]))
+        warp_agg.append(run)
+    base, out = IDENT, {}
+    for w in range(warps):
+        w0 = i0 + w * rows * lanes
+        for i in range(w0, min(w0 + rows * lanes, N)):
+            out[i] = _combine(base, loc[i])
+        base = _combine(base, warp_agg[w])
+    return out, heads, base
+
+
+def _look_back(status, t, paths):
+    """Tile t's exclusive pair from its predecessors' status words, 32 a
+    step (a warp's lanes, nearest first), to the nearest that holds a
+    visible inclusive prefix; each step's words combined in order."""
+    before, top = IDENT, t - 1
+    while True:
+        window, stop = IDENT, False
+        for p in range(top, max(top - 32, -1), -1):
+            st = status[p]
+            if t >= st["visible"]:
+                window, stop = _combine(st["incl"], window), True
+                paths["inclusive_stops"] += p > 0
+                break
+            window = _combine(st["agg"], window)
+        before = _combine(window, before)
+        if stop:
+            return before
+        top -= 32
+        paths["crossed"] += 1
+
+
+def _run_segments(skey, order, mz, tile, seed=0):
+    """mtc_step_segments' one pass, tile by tile: tiles taken in ticket
+    order (blocks start in any order and the block id is never used), each
+    publishes its pair, then looks back (``_look_back``) and publishes its
+    inclusive prefix. When the tiles after it see that prefix: tile 0 at
+    once (it publishes nothing else); tiles 1-33 stall, 70 tickets late, so
+    tile 34 combines 33 aggregates over two steps; from tile 34 on, even
+    tiles at once and odd ones 1-70 tickets late (drawn from ``seed``), so
+    look-backs stop at inclusive prefixes of tiles past 0. Returns what the
+    kernel writes and the counts of those two paths."""
     N = len(skey)
-    head = np.r_[True, skey[1:] != skey[:-1]]
+    lanes = min(32, tile)
+    rows = step.SEG_ROWS if tile == step.SEG_TILE else 1
+    warps = tile // (lanes * rows)
+    assert warps * rows * lanes == tile
+    span = rows * lanes                     # a warp's items
+    rng = np.random.default_rng(seed)
     smz = mz[order]
-    items = list(zip(head.astype(int), smz >> 1))
-    ident = (0, -1)
-    blocks = [items[b:b + block] for b in range(0, N, block)]
-    agg = [functools.reduce(_combine, blk, ident) for blk in blocks]
+    key = [int(x) for x in skey]
+    n_tiles = -(-N // tile)
+    ticket = np.arange(n_tiles)
+    late = np.where(ticket <= 33, 70,
+                    np.where(ticket % 2, rng.integers(1, 71, n_tiles), 0))
+    status = []
     seg_id = np.full(N, -1, np.int64)
     first = np.full(N + 2, -1, np.int64)
     seg_max = np.full(N, -1, np.int64)
-    for b, blk in enumerate(blocks):
-        run = functools.reduce(_combine, agg[:b], ident)
-        for j, it in enumerate(blk):
-            i = b * block + j
-            run = _combine(run, it)
-            g = run[0] - 1
+    paths = {"inclusive_stops": 0, "crossed": 0}
+    for t in range(n_tiles):                # the ticket
+        i0 = t * tile
+        loc, heads, agg = _tile_scan(key, smz, i0, lanes, rows, warps)
+        before = _look_back(status, t, paths) if t else IDENT
+        status.append({"agg": agg, "incl": _combine(before, agg),
+                       "visible": t + late[t] if t else 0})
+        for i in range(i0, min(i0 + tile, N)):
+            h, mx = _combine(before, loc[i])
+            g = h - 1
             seg_id[i] = g
-            if it[0]:
+            if heads[i]:
                 first[g] = i
-            if i + 1 == N or head[i + 1]:
-                seg_max[g] = run[1]
+            # the next item's head bit, or past the warp the key after it
+            nxt = i + 1 < N and (heads[i + 1] if (i + 1 - i0) % span
+                                 else key[i + 1] != key[i])
+            if i + 1 == N or nxt:
+                seg_max[g] = mx
             if i + 1 == N:
                 first[g + 1], first[N + 1] = N, g + 1
-    return order.astype(np.int32), smz, seg_id, first, seg_max
+    return (order.astype(np.int32), smz, seg_id, first, seg_max), paths
 
 
-@pytest.mark.parametrize("block", [7, 64, step.SEG_BLOCK])
+@pytest.mark.parametrize("block", [7, 64, step.SEG_TILE])
 @pytest.mark.parametrize("name", ["genome_k31", "copies_600",
                                   "at_rows_k30"])
 def test_segment_scan_blocks_match_plain(name, block):
+    """The one-pass scan's tiles (7 and 64 items, and the kernel's own),
+    in ticket order with decoupled look-back, equal the plain version; at 7
+    items a tile the look-back stops at some tile's inclusive prefix and
+    reads past 32 predecessors."""
     codes, k, _ = _cases()[name]
     key, mz = step._minimizers_plain(torch.from_numpy(codes), k)
     skey, order = torch.sort(key, stable=True)
     want = [x.numpy() for x in step._segments_plain(skey, order, mz)]
-    got = _run_segments(skey.numpy(), order.numpy(), mz.numpy(), block)
+    got, paths = _run_segments(skey.numpy(), order.numpy(), mz.numpy(),
+                               block, seed=block)
     nseg = len(want[3]) - 1
     assert got[3][len(codes) + 1] == nseg
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g[:len(w)], w)
+    if block == 7:
+        assert paths["inclusive_stops"] > 0 and paths["crossed"] > 0
+
+
+def test_seg_scratch_words():
+    """A status word (two int32) a tile and one for the ticket: at least
+    two words a tile of the scan, whose tile csrc/step.cu declares."""
+    src = open(os.path.join(os.path.dirname(step.__file__), os.pardir,
+                            "csrc", "step.cu")).read()
+    const = {n: int(re.search(rf"constexpr int {n} = (\d+);", src)[1])
+             for n in ("kSegThreads", "kSegRows")}
+    assert const["kSegRows"] == step.SEG_ROWS
+    assert const["kSegThreads"] * step.SEG_ROWS == step.SEG_TILE
+    T = step.SEG_TILE
+    for N, tiles in ((1, 1), (T, 1), (T + 1, 2), (5 * T - 1, 5),
+                     ((1 << 31) - 1, (1 << 31) // T)):
+        assert step.seg_scratch_words(N) == 2 * (tiles + 1)
+        assert step.seg_scratch_words(N) >= 2 * -(-N // step.SEG_TILE)
 
 
 def _orient(rows, z):
