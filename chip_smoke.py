@@ -44,7 +44,13 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      call that makes other than one launch fails the phase; and the read
      minimizer per ``sketch_reads_flat`` call (reads, k, launches, host
      wall, device ms; the bound of that work): more launches than calls
-     fail the phase.
+     fail the phase. Every 5M compress and decompress of phase 2 (2d, 2o
+     and 2p too) prints its device seconds and bytes by stage (the
+     summary's device_<stage>_s and device_<stage>_bytes: the host wall
+     spent in crossings between host and card, and the bytes that crossed)
+     and their seconds over the run's wall; a stage whose device seconds
+     exceed its wall fails the phase. The codec="auto" compress also
+     prints its number of crossings and what the accounting costs.
      Then the same with codec="device" (the on-device entropy coders): exact
      roundtrip, rANS encode launched during compress and rANS decode during
      decompress: at most one decode launch per device-coded stream (two for
@@ -69,7 +75,11 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
   5. trace and resume: at 100,000 reads, a compress without MTC_TRACE_DIR
      and two with it: each archive must equal phase 3's, and each trace
      (torch.profiler) must hold device events of the read minimizer, the
-     vote and the contig sketch. Then, with a checkpoint dir, compress,
+     vote and the contig sketch. The three runs' device bytes by stage
+     must be equal, add up to each call's ``mesh.device_bytes()`` delta
+     (no crossing outside a stage) and, in each trace, equal the bytes of
+     its host-to-device and device-to-host copies (Kineto's gpu_memcpy
+     events). Then, with a checkpoint dir, compress,
      delete the merge and realign snapshots, compress again: the second
      run resumes from the cluster snapshot, launches the merge kernels (the
      contig sketch and the re-vote) and not the read minimizer, and writes
@@ -858,6 +868,62 @@ class _LaunchTimer:
         return out
 
 
+class _Crossings:
+    """The bytes of each crossing between host and card that the package's
+    helpers (``ops/cuda.py``: ``to_device``, ``to_host``) account while it
+    is open, one entry a crossing (list.append holds up under the
+    container's pool threads)."""
+
+    def __enter__(self):
+        self.nbytes = []
+        self._account = cuda._account
+
+        def counted(dt, nbytes=0):
+            self.nbytes.append(nbytes)
+            self._account(dt, nbytes)
+
+        cuda._account = counted
+        return self
+
+    def __exit__(self, *exc):
+        cuda._account = self._account
+
+
+def _accounting_cost_s(n: int = 100_000) -> float:
+    """At most the host seconds that the helpers' accounting adds to one
+    crossing: two clock reads and one locked update of the counters (the
+    loop's own cost included)."""
+    t0 = time.perf_counter()
+    for _ in range(n):
+        s = time.perf_counter()
+        cuda._account(0.0 * (time.perf_counter() - s))
+    return (time.perf_counter() - t0) / n
+
+
+def _device_by_stage(tag, what, summary, wall_s) -> dict:
+    """Prints a run's device seconds and bytes by stage (the summary's
+    device_<stage>_s and device_<stage>_bytes) and their seconds over the
+    run's wall; fails where a stage's device seconds exceed the stage's
+    wall by more than the summary's rounding (ms for device seconds, 0.1 ms
+    for stage walls)."""
+    by = {}
+    for key, v in summary.items():
+        if key.startswith("device_"):
+            stage, unit = key[len("device_"):].rsplit("_", 1)
+            by.setdefault(stage, {})[unit] = v
+    secs = sum(x["s"] for x in by.values())
+    print(f"[{tag}] {what} device s and bytes by stage: {json.dumps(by)}; "
+          f"{secs:.3f} s in all, {secs / wall_s:.6f} of the {what} wall "
+          f"{wall_s:.2f} s")
+    walls = summary["timings_s"]
+    over = {s: [x["s"], walls[s]] for s, x in by.items()
+            if x["s"] - 5e-4 > walls[s] + 5e-5}
+    if over:
+        raise AssertionError(f"[{tag}] {what}: device seconds above the "
+                             f"stage wall: {over}")
+    return by
+
+
 def _mb_of(lens, k, w, cap):
     """Each contig's slot count: its rung's ``_batch_m`` (merge's plan)."""
     u, inv = np.unique(np.maximum(lens, k + 1), return_inverse=True)
@@ -1132,7 +1198,8 @@ def phase2_end_to_end(dev, tmp):
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     with _LaunchTimer() as lt, _SketchCalls() as sk, \
-            _ConsensusCalls(lt) as cc, _ReadSketchCalls(lt) as rs:
+            _ConsensusCalls(lt) as cc, _ReadSketchCalls(lt) as rs, \
+            _Crossings() as cx:
         t0 = time.perf_counter()
         summary = compressor.compress(fq, arc, device=dev)
         enc_s = time.perf_counter() - t0
@@ -1172,6 +1239,13 @@ def phase2_end_to_end(dev, tmp):
                              f"{tot['calls']} sketch_contigs calls")
     cc.report("2", kernel_s.get("mtc_consensus_vote", 0.0))
     rs.report("2", kernel_s.get("mtc_sketch_reads", 0.0))
+    _device_by_stage("2", "encode", summary, enc_s)
+    _device_by_stage("2", "decode", dsum, dec_s)
+    cost = _accounting_cost_s()
+    print(f"[2] {len(cx.nbytes)} crossings between host and card during "
+          f"compress ({sum(cx.nbytes)} B); the accounting costs at most "
+          f"{cost * 1e6:.3f} us a crossing here, "
+          f"{cost * len(cx.nbytes):.6f} s of the encode")
     return fq, arc, want, lt.launched, summary["archive_bytes"]
 
 
@@ -1206,6 +1280,8 @@ def phase2_device_codecs(dev, tmp, fq, want, auto_bytes):
     print("[2d] kernel device seconds: compress " + json.dumps(enc_k)
           + ", decompress " + json.dumps(dec_k) + "; read_container stage "
           f"{dsum['timings_s']['read_container']} s")
+    _device_by_stage("2d", "encode", summary, enc_s)
+    _device_by_stage("2d", "decode", dsum, dec_s)
 
     def planes(codec):   # coded planes of a codec: launches it may make
         base = codec.split(":")[-1]
@@ -1281,6 +1357,8 @@ def _mode_roundtrip(dev, tag, fq, cfg, auto_bytes, fq2=None):
     print(f"[{tag}] kernel device seconds during compress: "
           f"{json.dumps(kernel_s)}; {sum(kernel_s.values()) / enc_s:.6f} of "
           "the encode wall")
+    _device_by_stage(tag, "encode", summary, enc_s)
+    _device_by_stage(tag, "decode", dsum, dec_s)
     return lt.launched, outs
 
 
@@ -1379,25 +1457,57 @@ TRACED_KERNELS = {"mtc_sketch_reads": "sketch_reads_kernel",
                   "mtc_sketch_windowed": "sketch_windowed_kernel"}
 
 
+def _counted_compress(dev, fq, out):
+    """One compress: (its device bytes by stage, its wall, its number of
+    crossings); fails unless the stages' device bytes add up to the
+    ``device_bytes()`` delta of the call (no crossing outside a stage)."""
+    b0 = mesh.device_bytes()
+    with _Crossings() as cx:
+        t0 = time.perf_counter()
+        summary = compressor.compress(fq, out, device=dev)
+        wall = time.perf_counter() - t0
+    delta = mesh.device_bytes() - b0
+    by_stage = {k: v for k, v in summary.items()
+                if k.startswith("device_") and k.endswith("_bytes")}
+    if sum(by_stage.values()) != delta or sum(cx.nbytes) != delta:
+        raise AssertionError(f"stages' device bytes {by_stage}, crossings' "
+                             f"{sum(cx.nbytes)}, device_bytes() delta {delta}")
+    return by_stage, wall, len(cx.nbytes)
+
+
+def _trace_copies(events) -> dict:
+    """The host-to-device and device-to-host copies of a trace (Kineto's
+    gpu_memcpy events; device-to-device ones left out): their count, bytes
+    and device seconds."""
+    cp = [e for e in events if e.get("cat") == "gpu_memcpy"
+          and ("HtoD" in e.get("name", "") or "DtoH" in e.get("name", ""))]
+    return {"copies": len(cp),
+            "bytes": sum(e["args"]["bytes"] for e in cp),
+            "device_s": sum(e.get("dur", 0) for e in cp) / 1e6,
+            "by_kind": {k: sum(k in e["name"] for e in cp)
+                        for k in ("HtoD", "DtoH")}}
+
+
 def _traced_compress(dev, fq, tmp, want):
     """One compress without MTC_TRACE_DIR, then two with it (the first pays
     the profiler's start-up): every archive must equal ``want``, and each
     trace must hold device events of the read minimizer, the vote and the
-    contig sketch."""
+    contig sketch. The three runs' device bytes by stage must be equal,
+    add up to each call's ``device_bytes()`` delta, and, in each trace,
+    equal the bytes of its host-to-device and device-to-host copies."""
     out = os.path.join(tmp, "trace.mtc")
-    t0 = time.perf_counter()
-    compressor.compress(fq, out, device=dev)
-    walls = [time.perf_counter() - t0]
+    by_stage, wall, _ = _counted_compress(dev, fq, out)
+    walls, stages = [wall], [by_stage]
     _same_archive(out, want, "untraced compress and phase 3")
     for i in range(2):
         trace_dir = os.path.join(tmp, f"trace{i}")
         os.environ["MTC_TRACE_DIR"] = trace_dir
         try:
-            t0 = time.perf_counter()
-            compressor.compress(fq, out, device=dev)
-            walls.append(time.perf_counter() - t0)
+            by_stage, wall, crossings = _counted_compress(dev, fq, out)
+            walls.append(wall)
         finally:
             del os.environ["MTC_TRACE_DIR"]
+        stages.append(by_stage)
         _same_archive(out, want, "traced compress and phase 3")
         files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
         if len(files) != 1 or not files[0].endswith(".pt.trace.json"):
@@ -1414,8 +1524,21 @@ def _traced_compress(dev, fq, tmp, want):
               f"{os.path.getsize(files[0])} B trace, {len(events)} events, "
               f"{len(kern)} kernel events ({busy:.6f} s on the card), ours "
               f"by name {json.dumps(found)}")
+        copies = _trace_copies(events)
+        staged = sum(by_stage.values())
+        print(f"[5] compress {i + 1}: the stages' device bytes {staged} in "
+              f"{crossings} crossings; the trace's host-device copies "
+              f"{json.dumps(copies)}")
+        if copies["bytes"] != staged:
+            raise AssertionError(f"the trace's copies moved "
+                                 f"{copies['bytes']} B, the stages "
+                                 f"{staged} B")
+    if any(s != stages[0] for s in stages):
+        raise AssertionError(f"device bytes by stage differ: {stages}")
     print(f"[5] compress walls s, untraced then traced twice: "
-          f"{json.dumps(walls)}; archives equal phase 3's")
+          f"{json.dumps(walls)}; archives equal phase 3's; device bytes by "
+          f"stage equal in the three {json.dumps(stages[0])}, each the "
+          "call's device_bytes() delta and, traced, the trace's copies")
 
 
 def phase5_resume(dev, fq, tmp, want):

@@ -42,6 +42,7 @@ from minicom_tpu_torch.checkpoint import StageCheckpoint
 from minicom_tpu_torch.config import CompressorConfig
 from minicom_tpu_torch.entropy.backend import is_device_codec
 from minicom_tpu_torch.io import container, fastq
+from minicom_tpu_torch.ops import cuda
 from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.parallel.store import ShardedReadStore, maybe_shard
 from minicom_tpu_torch.pipeline import classify as classify_mod
@@ -144,7 +145,7 @@ def _compress(reads_path, out_path, cfg, reads_path2, stats, dev) -> dict:
             if isinstance(cls.codes_sub, ShardedReadStore):
                 codes_dev = cls.codes_sub.on_device(dev)
             else:
-                codes_dev = torch.from_numpy(cls.codes_sub).to(dev)
+                codes_dev = cuda.to_device(cls.codes_sub, dev)
     if rank < 1:
         with stats.stage("cluster"):
             cset, sg = cluster_mod.cluster_rounds(codes_dev, cls.pool, rcfg)

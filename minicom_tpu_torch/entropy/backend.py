@@ -125,6 +125,19 @@ def decompress(name: str, data: bytes, raw_len: int, device=None) -> bytes:
     return _interleave(out, stride)
 
 
+def available(name: str) -> bool:
+    """Whether codec ``name`` can run here: the range coders, dz and dzt
+    need the host library, which is built at first use (False where that
+    build fails); every other codec is stdlib or runs on the ``device``
+    passed to ``compress``."""
+    if _split(name)[1] in _RC_FAMILIES + ("dz", "dzt"):
+        try:
+            native._load()
+        except (OSError, RuntimeError):
+            return False
+    return True
+
+
 def best_of(candidates: list[str], data: bytes,
             device=None) -> tuple[str, bytes]:
     """The smallest encoding among ``candidates`` (first wins ties)."""

@@ -32,7 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from minicom_tpu_torch.ops import rans
+from minicom_tpu_torch.ops import cuda, rans
 from minicom_tpu_torch.ops.rans import LANES, M
 
 _VERSION = 1
@@ -112,7 +112,7 @@ def _upload(arrays: list[np.ndarray], device) -> list[torch.Tensor]:
     for a, o in zip(arrays, offs):
         buf[o: o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(
             np.uint8)
-    dev = torch.from_numpy(buf).to(device)
+    dev = cuda.to_device(buf, device)
     return [dev[o: o + a.nbytes].view(getattr(torch, a.dtype.name))
             for a, o in zip(arrays, offs)]
 
@@ -148,12 +148,11 @@ def unpack_words(blocks: list[Block], desc: torch.Tensor, head: torch.Tensor,
     """``blocks`` with what ``rans_encode_blocks`` gave for them: one
     download of the states and word counts, then one of the lane streams
     (the words each block emitted, not the room it was given)."""
-    head = head.cpu().numpy()
+    head = cuda.to_host(head).numpy()
     totals = head[:, LANES:].sum(axis=1, dtype=np.int64)
     words = words.view(torch.int16)      # torch.cat takes no uint16
-    flat = torch.cat([words[o: o + t] for o, t in zip(
-        desc[:, rans.E_WORDS].tolist(), totals)]).cpu().numpy().view(
-            np.uint16)
+    flat = cuda.to_host(torch.cat([words[o: o + t] for o, t in zip(
+        desc[:, rans.E_WORDS].tolist(), totals)])).numpy().view(np.uint16)
     ends = np.cumsum(totals)
     return [dataclasses.replace(b, head=head[i], words=flat[e - t: e])
             for i, (b, t, e) in enumerate(zip(blocks, totals, ends))]
@@ -208,7 +207,7 @@ def decode_blocks(blocks: list[Block], device) -> list[np.ndarray]:
     if not blocks:
         return []
     out = rans.rans_decode_blocks(*pack_blocks(blocks, device))
-    return unpack_symbols(blocks, out.cpu().numpy())
+    return unpack_symbols(blocks, cuda.to_host(out).numpy())
 
 
 def _parse_block(blob) -> tuple[Block, int]:

@@ -141,7 +141,7 @@ def _upload(rd, col, seg_ptr, col_ptr, L, dev):
                        pin_memory=dev.type == "cuda")
     np.concatenate(parts, out=host.numpy())
     cap = int((tiles[:, 1] - tiles[:, 0]).max()) if len(tiles) else 0
-    return host.to(dev, non_blocking=True), len(tiles), cap
+    return cuda.to_device(host, dev, non_blocking=True), len(tiles), cap
 
 
 def _kernel(codes, plan, M, n_tiles, cap, ref=None, diffs=None):
@@ -195,7 +195,7 @@ def consensus_vote_flat(codes: torch.Tensor, rd: np.ndarray, col: np.ndarray,
                 diffs.numpy() if want_diffs else None)
     out, _, _ = _launch(codes, rd, col, seg_ptr, col_ptr, span, want_ref,
                         want_diffs)
-    host = out.cpu().numpy()
+    host = cuda.to_host(out).numpy()
     nd = 4 * len(rd) if want_diffs else 0
     return (host[nd:] if want_ref else None,
             host[:nd].view(np.int32) if want_diffs else None)
@@ -221,7 +221,7 @@ def consensus_vote(codes: torch.Tensor, rd: torch.Tensor, col: torch.Tensor,
         raise ValueError("codes, rd and col on different devices")
     if col.shape[0] != rd.shape[0]:
         raise ValueError("rd and col differ in length")
-    h_rd, h_col = rd.cpu().numpy(), col.cpu().numpy()
+    h_rd, h_col = cuda.to_host(rd).numpy(), cuda.to_host(col).numpy()
     seg_ptr, col_ptr = np.array([0, len(h_rd)]), np.array([0, span])
     _check(codes.shape[0], codes.shape[1], h_rd, h_col, seg_ptr, col_ptr,
            span)

@@ -1,10 +1,18 @@
 """The CUDA kernels of ``csrc/``: built with nvcc for sm_90a at first use
-(never at import), loaded with ctypes, launch-checked, and counted.
+(never at import), loaded with ctypes, launch-checked, and counted; and the
+crossings between host and device, timed and counted.
 
 ``launches[name]`` grows by one each time a wrapper in ``ops/`` launches its
 kernel; launches of a plain PyTorch version on a CPU tensor do not count.
 Wrappers launch from several threads at once (the container codes streams
 in a thread pool), so the count is taken under a lock.
+
+Every copy between the host and a device in the package goes through
+``to_device`` or ``to_host``. Each adds to two process-wide counters, read by
+``device_seconds()`` and ``device_bytes()``: the host wall spent in the copy
+(for a synchronous download, the queued work it waits for included; for a
+non-blocking upload, the enqueue) and the bytes that crossed.
+``stats.StageStats`` splits both by stage.
 """
 
 from __future__ import annotations
@@ -14,8 +22,10 @@ import ctypes
 import os
 import shutil
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from minicom_tpu_torch.native import build_shared
@@ -27,6 +37,10 @@ _SRCS = [os.path.join(_CSRC, f) for f in ("sketch.cu", "consensus.cu",
 
 launches: collections.Counter = collections.Counter()
 _launches_lock = threading.Lock()
+
+_device_seconds = 0.0
+_device_bytes = 0
+_device_lock = threading.Lock()
 
 _P, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _SIGS = {
@@ -100,6 +114,62 @@ def launch(name: str, *args) -> None:
                            f"({lib().mtc_cuda_error_string(err).decode()})")
     with _launches_lock:
         launches[name] += 1
+
+
+def reset_device_seconds() -> None:
+    """Set the crossing counters to 0."""
+    global _device_seconds, _device_bytes
+    with _device_lock:
+        _device_seconds, _device_bytes = 0.0, 0
+
+
+def device_seconds() -> float:
+    """Host wall seconds spent in crossings since the last reset, summed
+    over threads."""
+    with _device_lock:
+        return _device_seconds
+
+
+def device_bytes() -> int:
+    """Bytes that crossed between host and device since the last reset."""
+    with _device_lock:
+        return _device_bytes
+
+
+def _account(dt: float, nbytes: int = 0) -> None:
+    global _device_seconds, _device_bytes
+    with _device_lock:
+        _device_seconds += dt
+        _device_bytes += nbytes
+
+
+def to_device(x, dev, non_blocking: bool = False) -> torch.Tensor:
+    """``x`` (a tensor, or a numpy array taken without a copy where it is
+    contiguous) on device ``dev``. A copy from the host to a device, or
+    back, is timed and counted; ``non_blocking`` as for ``Tensor.to``."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    dev = torch.device(dev)
+    if x.device.type == dev.type:
+        return x.to(dev)
+    t0 = time.perf_counter()
+    out = x.to(dev, non_blocking=non_blocking)
+    _account(time.perf_counter() - t0, x.numel() * x.element_size())
+    return out
+
+
+def to_host(t: torch.Tensor, out: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """``t`` on the host: ``t`` itself where it is there, else a new host
+    tensor, or ``out`` (a host tensor of t's shape, pinned or not) written
+    in place. A copy from a device is timed and counted; it waits for the
+    work queued before it."""
+    if t.device.type == "cpu":
+        return t if out is None else out.copy_(t)
+    t0 = time.perf_counter()
+    out = t.cpu() if out is None else out.copy_(t)
+    _account(time.perf_counter() - t0, t.numel() * t.element_size())
+    return out
 
 
 def sketch_layout(w: int) -> tuple[int, int]:

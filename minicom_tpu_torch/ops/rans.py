@@ -237,7 +237,7 @@ def _plan(head, words, freq, desc, out_size):
         # every row sums to M or (unused) 0: other rows have no slot table
         sums = _u16(freq[d[D_FREQ]: d[D_FREQ] + C * A]).view(C, A).sum(dim=1)
         bad |= ((sums != 0) & (sums != M)).any()
-    if B and bool(bad):
+    if B and bool(cuda.to_host(bad)):
         raise ValueError("rans_decode_blocks: a frequency row sums to "
                          f"neither {M} nor 0")
     return torch.cat([desc, torch.tensor(lut, dtype=torch.int64).view(B, 1)],
@@ -293,7 +293,7 @@ def rans_decode_blocks(head: torch.Tensor, words: torch.Tensor,
     syms = torch.empty(out_size, dtype=torch.uint8, device=dev)
     if len(full):
         cuda.launch("mtc_rans_decode", head, words, words.shape[0], freq,
-                    full.to(dev), len(full), smem, syms)
+                    cuda.to_device(full, dev), len(full), smem, syms)
     return syms
 
 
@@ -466,7 +466,7 @@ def _plan_encode(syms, freq, desc):
                          "bits; split the batch")
     if freq.shape[0]:
         bad |= _u16(freq).max() > M
-    if bool(bad):
+    if bool(cuda.to_host(bad)):
         raise ValueError("rans_encode_blocks: a symbol id outside its "
                          f"alphabet, or a frequency above {M}")
     B = desc.shape[0]
@@ -511,6 +511,6 @@ def rans_encode_blocks(syms: torch.Tensor, freq: torch.Tensor,
     words = torch.empty(size, dtype=torch.uint16, device=dev)
     scratch = torch.empty(size, dtype=torch.uint16, device=dev)
     if B:
-        cuda.launch("mtc_rans_encode", syms, freq, full.to(dev), B, smem,
-                    head, scratch, words)
+        cuda.launch("mtc_rans_encode", syms, freq, cuda.to_device(full, dev),
+                    B, smem, head, scratch, words)
     return head, words

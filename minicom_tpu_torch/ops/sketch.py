@@ -129,10 +129,9 @@ def sketch_reads_flat(codes: torch.Tensor, rids: np.ndarray,
         np.copyto(buf.numpy()[:n], rids, casting="unsafe")
     out = torch.empty((3, n), dtype=torch.int32, device=codes.device)
     cuda.launch("mtc_sketch_reads", codes, L,
-                buf[:n].to(codes.device, non_blocking=True), n, k, out)
-    res = buf.view(3, n)
-    res.copy_(out)
-    return res.numpy().view(np.uint32)
+                cuda.to_device(buf[:n], codes.device, non_blocking=True), n,
+                k, out)
+    return cuda.to_host(out, buf.view(3, n)).numpy().view(np.uint32)
 
 
 def sketch_reads_device(codes: torch.Tensor, rids: torch.Tensor,
@@ -176,8 +175,8 @@ def sketch_reads_gather(codes: torch.Tensor, rids: torch.Tensor,
     cuda.check(rids, torch.int64, 1, "rids")
     if rids.device != codes.device:
         raise ValueError("codes and rids on different devices")
-    out = sketch_reads_flat(codes, rids.cpu().numpy(), k)
-    return torch.from_numpy(out).to(codes.device)
+    out = sketch_reads_flat(codes, cuda.to_host(rids).numpy(), k)
+    return cuda.to_device(out, codes.device)
 
 
 def _sketch_windowed_plain(ref_flat, starts, lengths, Lmax, k, we, mb):
@@ -229,10 +228,11 @@ def _sketch_windowed_flat_plain(ref_flat, starts, lengths, mb, k, w):
         for i in range(int(lo), int(hi), _PLAIN_ROWS):
             j = min(i + _PLAIN_ROWS, int(hi))
             lmax = max(int(lengths[i:j].max()), k)
-            key, meta, nv = (x.cpu().numpy() for x in _sketch_windowed_plain(
-                ref_flat, torch.from_numpy(starts[i:j]).to(dev),
-                torch.from_numpy(lengths[i:j].astype(np.int32)).to(dev),
-                lmax, k, min(w, lmax - k + 1), int(mb[i])))
+            dense = _sketch_windowed_plain(
+                ref_flat, cuda.to_device(starts[i:j], dev),
+                cuda.to_device(lengths[i:j].astype(np.int32), dev),
+                lmax, k, min(w, lmax - k + 1), int(mb[i]))
+            key, meta, nv = (cuda.to_host(x).numpy() for x in dense)
             v = np.arange(mb[i])[None, :] < nv[:, None]
             keys.append(key[v])
             metas.append(meta[v])
@@ -308,7 +308,7 @@ def sketch_windowed_compact32(ref_flat: torch.Tensor, starts: torch.Tensor,
     if not (1 <= k <= 31 and k <= Lmax and we >= 1 and mb >= 1):
         raise ValueError(f"bad sketch shape k={k} Lmax={Lmax} we={we} "
                          f"mb={mb}")
-    st, ln = starts.cpu().numpy(), lengths.cpu().numpy()
+    st, ln = cuda.to_host(starts).numpy(), cuda.to_host(lengths).numpy()
     _check_rows(st, ln, len(ref_flat), Lmax)
     if ref_flat.device.type == "cpu":
         return _sketch_windowed_plain(ref_flat, starts, lengths, Lmax, k, we,
@@ -323,7 +323,7 @@ def sketch_windowed_compact32(ref_flat: torch.Tensor, starts: torch.Tensor,
         desc, n_tiles, w_eff = _plan(st, ln, np.full(rows, mb),
                                      np.arange(rows) * mb, k,
                                      min(we, Lmax - k + 1))
-        _launch(ref_flat, torch.from_numpy(desc).to(dev), rows, n_tiles, k,
+        _launch(ref_flat, cuda.to_device(desc, dev), rows, n_tiles, k,
                 w_eff, stage)
     return stage
 
@@ -369,9 +369,9 @@ def sketch_windowed_flat(ref_flat: torch.Tensor, starts: np.ndarray,
              torch.empty(rows, dtype=torch.int32, device=dev))
     out = torch.empty((cap, 2), dtype=torch.int32, device=dev)
     status = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev)
-    _launch(ref_flat, torch.from_numpy(desc).to(dev), rows, n_tiles, k,
+    _launch(ref_flat, cuda.to_device(desc, dev), rows, n_tiles, k,
             w_eff, stage, out, status)
-    nv = stage[2].cpu().numpy()
-    ent = out[:int(nv.sum())].cpu().numpy()
+    nv = cuda.to_host(stage[2]).numpy()
+    ent = cuda.to_host(out[:int(nv.sum())]).numpy()
     return (np.ascontiguousarray(ent[:, 0]).view(np.uint32),
             np.ascontiguousarray(ent[:, 1]), nv)

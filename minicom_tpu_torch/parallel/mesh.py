@@ -35,6 +35,10 @@ On each rank, in order (``ops/step.py`` holds the kernels' wrappers):
 The collectives go over gloo through host memory (NCCL refuses two ranks on
 one card, and ``parallel/distributed.py`` is gloo only). The compute stays
 on the device of the local rows; only the exchanged bytes cross the host.
+
+The module also exposes the process's crossing counters as the JAX module
+does: ``device_seconds()``, ``device_bytes()`` and
+``reset_device_seconds()`` (kept in ``ops/cuda.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +51,8 @@ import torch
 import torch.distributed as tdist
 
 from minicom_tpu_torch.ops import cuda, sketch, step
+from minicom_tpu_torch.ops.cuda import (  # noqa: F401 (the JAX names)
+    device_bytes, device_seconds, reset_device_seconds)
 from minicom_tpu_torch.parallel import distributed as dist
 
 CHUNK_BYTES = 1 << 30   # the most bytes of one broadcast of output columns
@@ -88,27 +94,28 @@ class _Record:
                 "s": time.perf_counter() - t, "sent_B": int(sent),
                 "recv_B": int(recv)}
 
-    def to_host(self, t: torch.Tensor) -> torch.Tensor:
-        if t.device.type == "cpu":
-            return t
-        return self.copy(torch.empty_like(t, device="cpu"), t)
+    def to_host(self, t: torch.Tensor, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        """``cuda.to_host``, also counted in this call's copies."""
+        s = time.perf_counter()
+        out = cuda.to_host(t, out)
+        if t.device.type != "cpu":
+            self._copied("d2h_B", t, time.perf_counter() - s)
+        return out
 
     def to_device(self, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
-        if t.device == dev:
-            return t
-        return self.copy(torch.empty_like(t, device=dev), t)
-
-    def copy(self, dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-        """dst.copy_(src), counted where it crosses between host and
-        device."""
+        """``cuda.to_device``, also counted in this call's copies."""
         s = time.perf_counter()
-        dst.copy_(src)
-        if self.stats is not None and dst.device != src.device:
+        out = cuda.to_device(t, dev)
+        if t.device.type != dev.type:
+            self._copied("h2d_B", t, time.perf_counter() - s)
+        return out
+
+    def _copied(self, key: str, t: torch.Tensor, dt: float) -> None:
+        if self.stats is not None:
             c = self.stats["copies"]
-            c["s"] += time.perf_counter() - s
-            c["h2d_B" if dst.is_cuda else "d2h_B"] += (src.numel()
-                                                       * src.element_size())
-        return dst
+            c["s"] += dt
+            c[key] += t.numel() * t.element_size()
 
     def finish(self, **owned) -> None:
         if self.stats is None:
@@ -239,7 +246,7 @@ def sharded_cluster_step(codes_local: torch.Tensor, k: int, span_cols: int,
     # 4. ownership: g[r], the segments before rank r's first owned one, is
     # 1 + the segment of the member before b_r; f[r] = first[g[r]] its first
     # member; C[s, o] the members of rank o's segments that rank s holds
-    bnd = torch.from_numpy(bounds.astype(np.int32)).to(dev)
+    bnd = rec.to_device(torch.from_numpy(bounds.astype(np.int32)), dev)
     inner = bnd[1:-1]
     g = torch.cat([bnd[:1], torch.where(
         inner > 0, seg_id[(inner - 1).clamp(min=0).long()] + 1, 0), nseg])
@@ -302,8 +309,8 @@ def sharded_cluster_step(codes_local: torch.Tensor, k: int, span_cols: int,
     cons = torch.empty(span_cols, dtype=torch.uint8)
     cov = torch.empty(span_cols, dtype=torch.int32)
     if voted:   # straight into the whole output: no transient host copy
-        rec.copy(cons[lo:hi], cons_loc)
-        rec.copy(cov[lo:hi], cov_loc)
+        rec.to_host(cons_loc, cons[lo:hi])
+        rec.to_host(cov_loc, cov[lo:hi])
         del cons_loc, cov_loc
     with rec.collective("columns", 5 * (hi - lo) * (nproc - 1),
                         5 * (span_cols - (hi - lo))):

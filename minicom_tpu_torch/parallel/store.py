@@ -28,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from minicom_tpu_torch.ops import cuda
 from minicom_tpu_torch.parallel import distributed as dist
 
 
@@ -56,7 +57,7 @@ class ShardedReadStore:
     def on_device(self, device: torch.device) -> "ShardedReadStore":
         """The same store with the local slice also on ``device``."""
         return ShardedReadStore(self.local, self.bounds,
-                                torch.from_numpy(self.local).to(device))
+                                cuda.to_device(self.local, device))
 
     # -- collective row access ------------------------------------------------
 

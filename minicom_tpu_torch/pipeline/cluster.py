@@ -24,9 +24,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 
 from minicom_tpu_torch.config import ResolvedConfig
+from minicom_tpu_torch.ops import cuda
 from minicom_tpu_torch.ops.consensus import consensus_vote_flat
 from minicom_tpu_torch.ops.sketch import sketch_reads_flat
 from minicom_tpu_torch.parallel import distributed as dist
@@ -89,10 +89,6 @@ class ClusterSet:
                           np.concatenate(ptrs), ref_flat, np.concatenate(rptrs))
 
 
-def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
-
-
 def consensus_from_members(readlen: int, seg_id: np.ndarray, offsets: np.ndarray,
                            rids: np.ndarray, dirs: np.ndarray,
                            n_segments: int, codes_dev,
@@ -125,7 +121,8 @@ def consensus_from_members(readlen: int, seg_id: np.ndarray, offsets: np.ndarray
     rids = np.asarray(rids[m0:m1], np.int64)
     codes = codes_dev
     if isinstance(codes_dev, ShardedReadStore):
-        codes = to_device(codes_dev.rows(rids), codes_dev.local_dev.device)
+        codes = cuda.to_device(codes_dev.rows(rids),
+                               codes_dev.local_dev.device)
         rids = np.arange(m1 - m0, dtype=np.int64)
     ref, diffs = consensus_vote_flat(
         codes, rids * 2 + dirs[m0:m1],

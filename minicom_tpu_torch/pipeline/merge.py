@@ -27,11 +27,11 @@ import torch
 
 from minicom_tpu_torch import native
 from minicom_tpu_torch.config import ResolvedConfig
+from minicom_tpu_torch.ops import cuda
 from minicom_tpu_torch.ops.sketch import sketch_windowed_flat
 from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.pipeline.cluster import (ClusterSet,
-                                                consensus_from_members,
-                                                to_device)
+                                                consensus_from_members)
 from minicom_tpu_torch.stats import substage as _sub
 
 _LMAX_FLOOR = 128      # smallest contig-length bucket
@@ -119,7 +119,7 @@ def sketch_contigs(cs: ClusterSet, k: int, w: int, rank_cap: int,
     mb = np.repeat([_batch_m(Lmax, k, w, rank_cap) for _, _, Lmax, _ in mine],
                    [j - i for i, j, _, _ in mine]).astype(np.int64)
     key, meta, nv = sketch_windowed_flat(
-        to_device(cs.ref_flat, device), cs.ref_ptr[rows], lens[rows], mb, k,
+        cuda.to_device(cs.ref_flat, device), cs.ref_ptr[rows], lens[rows], mb, k,
         w)
     # rows whose slot budget saturated (true emission count unknown past
     # mb) — the drop signal for the rank cap

@@ -8,7 +8,8 @@ card (which has no jax, so without the repo conftest):
 (the second: the rANS kernels alone, seconds; ``-k sketch`` and ``-k
 consensus`` take the other kernels alone, ``-k sketch_reads`` the read
 minimizer, ``-k step`` the fused cluster step, ``-k mesh`` the sharded step
-in two ranks on one card).
+in two ranks on one card, ``-k accounting`` the counted crossings between
+host and card).
 """
 
 import importlib.util
@@ -918,3 +919,59 @@ def test_pe_roundtrip_on_cuda(dev, tmp_path):
     got = sorted(zip(open(o1, "rb").read().splitlines(),
                      open(o2, "rb").read().splitlines()))
     assert got == sorted(zip(l1, l2))
+
+
+# ---- the crossings between host and card (ops/cuda.py) ---------------------
+
+def test_accounting_counts_h2d_d2h_and_pinned_copies(dev):
+    cuda.reset_device_seconds()
+    a = np.arange(3000, dtype=np.int32)
+    x = cuda.to_device(a, dev)
+    u = torch.arange(1000, dtype=torch.int64)
+    y = cuda.to_device(u, dev)
+    assert cuda.device_bytes() == 12_000 + 8_000
+    np.testing.assert_array_equal(cuda.to_host(x).numpy(), a)
+    assert cuda.device_bytes() == 2 * 12_000 + 8_000
+    pinned = torch.empty(1000, dtype=torch.int64, pin_memory=True)
+    pinned.copy_(u)
+    z = cuda.to_device(pinned, dev, non_blocking=True)
+    out = torch.zeros(1000, dtype=torch.int64, pin_memory=True)
+    assert cuda.to_host(z + y, out) is out
+    assert torch.equal(out, 2 * u)
+    assert cuda.device_bytes() == 2 * 12_000 + 3 * 8_000
+    assert cuda.to_device(x, dev) is x and cuda.to_host(out) is out
+    assert cuda.device_bytes() == 2 * 12_000 + 3 * 8_000
+    cuda.reset_device_seconds()
+
+
+def test_accounting_download_after_a_launch_adds_seconds(dev):
+    rng = np.random.default_rng(21)
+    codes = torch.from_numpy(_reads_store(rng, 1 << 16, 100)).to(dev)
+    rids = torch.arange(1 << 16, dtype=torch.int32, device=dev)
+    out = sketch_reads_device(codes, rids, 31)
+    cuda.reset_device_seconds()
+    cuda.to_host(out)
+    assert cuda.device_seconds() > 0
+    assert cuda.device_bytes() == out.numel() * 4
+    # the cluster rounds' entry: the int32 rids up, the three words down
+    cuda.reset_device_seconds()
+    sketch_reads_flat(codes, rng.integers(0, 1 << 16, 5000), 31)
+    assert cuda.device_bytes() == 5000 * (4 + 12)
+    cuda.reset_device_seconds()
+
+
+def test_accounting_compress_100k_by_stage(dev, tmp_path):
+    """The read store's bytes in the upload stage, the cluster and merge
+    kernels' crossings in theirs, no entropy crossing with codec="auto",
+    and no byte outside a stage."""
+    from bench import make_dataset
+    fq, arc = str(tmp_path / "in.fastq"), str(tmp_path / "out.mtc")
+    make_dataset(fq, 100_000)
+    cuda.reset_device_seconds()
+    s = compressor.compress(fq, arc, device=dev)
+    assert s["device_upload_bytes"] == 100_000 * 100
+    assert s["device_cluster_bytes"] > 0 and s["device_merge_bytes"] > 0
+    assert "device_entropy_bytes" not in s and "device_entropy_s" not in s
+    assert sum(v for k, v in s.items() if k.startswith("device_")
+               and k.endswith("_bytes")) == cuda.device_bytes()
+    cuda.reset_device_seconds()
