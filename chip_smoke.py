@@ -5,7 +5,9 @@
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
   0. device: a CUDA device must be present; prints the card's name and power
-     limit (nvidia-smi) and builds the CUDA kernels and the host library.
+     limit (nvidia-smi) and builds the CUDA kernels and the host library
+     (g++ of the port's own C++, ``minicom_tpu_torch/native/*.cpp``), each
+     timed.
   1. kernels: each CUDA kernel against its plain PyTorch version on the same
      CUDA tensors (and against its host C++ twin or numpy oracle), exact, at
      the main path's shapes; kernel times are from CUDA graphs of 20
@@ -135,11 +137,18 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      of the default profile must write phase 3's codec=auto cuda archive.
      Prints the cell's rates, archive, stage walls, device seconds and
      bytes, and the traced run's busy share.
-The line before the last is a JSON object with each kernel's numbers
+  10. codec table: ``tools/codecs_table_torch.py``'s ``main`` on phase 3's
+     100k codec=auto cuda archive, its on-device codecs on the card: every
+     device trial decodes back exactly (the tool exits otherwise), each
+     launches the rANS encode, and the run launches both the rANS encode
+     and decode (kernels (f)+(g)), the encodes as many times as its rows
+     count (the tool's set-up codes one small stream apart from them). Prints the device_vs_host line and the phase's wall.
+Three lines end the output: the script's whole wall; a JSON object with
+each kernel's numbers
 (bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
 ops_bound_ms: the integer operations its function needs, see ``OPS``, over
-16.75 T/s; bound_ms: the larger of the two); the last line is {"ok": true,
-"device": {...}}. ``rans_times.py``, ``sketch_times.py`` and
+16.75 T/s; bound_ms: the larger of the two); and {"ok": true, "device":
+{...}}. ``rans_times.py``, ``sketch_times.py`` and
 ``consensus_times.py`` run phase 1's checks of one kernel alone. The rows
 of the step's kernels give ms and bound_ms at 5,000,000 reads, ms_at_2p20
 at 2^20, and plain_ms at ``plain_reads`` reads (the vote's plain version
@@ -151,6 +160,7 @@ from __future__ import annotations
 import filecmp
 import contextlib
 import hashlib
+import importlib.util
 import json
 import os
 import resource
@@ -2295,13 +2305,58 @@ def phase0_device():
     native._load()
     print(f"[0] {torch.cuda.get_device_name(0)}; torch {torch.__version__} "
           f"CUDA {torch.version.cuda}; kernels built in {t1 - t0:.1f} s, "
-          f"host library in {time.perf_counter() - t1:.1f} s")
+          f"host library ({len(native._SRCS)} sources in "
+          f"{os.path.relpath(native._SRC_DIR, ROOT)}/) in "
+          f"{time.perf_counter() - t1:.1f} s")
     return dev
+
+
+def phase10_codecs_table(tmp, arc):
+    """``tools/codecs_table_torch.py``'s main on ``arc`` with its on-device
+    codecs on the card, the launches counted from 0 around it: every device
+    trial decodes back (the tool exits otherwise) and launches the rANS
+    encode, and the run launches the encode and the decode."""
+    spec = importlib.util.spec_from_file_location(
+        "codecs_table_torch", os.path.join(ROOT, "tools",
+                                           "codecs_table_torch.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = os.path.join(tmp, "codecs_table.json")
+    t0 = time.perf_counter()
+    cuda.launches.clear()
+    rc = tool.main([arc, out, "--device", "cuda"])
+    launched = dict(cuda.launches)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[10] the codec table exited {rc}")
+    _require(launched, ("mtc_rans_encode", "mtc_rans_decode"),
+             "the codec table")
+    with open(out) as f:
+        result = json.load(f)
+    trials = {f"{name}:{k[:-len('_launches')]}": v
+              for name, row in result["streams"].items()
+              for k, v in row.items() if k.endswith("_launches")}
+    if not trials or min(trials.values()) < 1:
+        raise AssertionError(f"[10] a device trial launched no encode: "
+                             f"{trials}")
+    setup = result["setup_launches"].get("mtc_rans_encode", 0)
+    if sum(trials.values()) + setup != launched["mtc_rans_encode"]:
+        raise AssertionError(f"[10] the rows count {sum(trials.values())} "
+                             f"encode launches and the set-up {setup}, the "
+                             f"run {launched['mtc_rans_encode']}")
+    print(f"[10] codec table of {os.path.basename(arc)} "
+          f"({os.path.getsize(arc)} B): "
+          f"{len(trials)} device trials decoded exactly; launches "
+          f"{json.dumps(launched)}; " + json.dumps(
+              {k: v for k, v in result.items()
+               if k not in ("streams", "what")}))
+    print(f"[10] phase 10 took {wall:.1f} s")
 
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2:])
+    t_start = time.perf_counter()
     dev = phase0_device()
     if dev is None:
         return 1
@@ -2334,6 +2389,7 @@ def main() -> int:
         steps, store = phase7_cluster_step(dev, fq, report)
         phase8_sharded_step(dev, tmp, store)
         phase9_bench(dev, tmp, same["codec=auto"])
+        phase10_codecs_table(tmp, same["codec=auto"])
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
                     mtc_popcount_verify=ver["mtc_popcount_verify"], **steps)
@@ -2341,6 +2397,8 @@ def main() -> int:
                ("mtc_sketch_reads", "mtc_sketch_windowed",
                 "mtc_consensus_vote", "mtc_rans_encode", "mtc_rans_decode",
                 "mtc_popcount_verify") + STEP_KERNELS]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

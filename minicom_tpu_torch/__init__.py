@@ -8,10 +8,11 @@ run as hand-written CUDA kernels on a CUDA device, or as their plain PyTorch
 versions on the CPU; the archive is byte-identical either way and
 byte-identical to the JAX package's. In a ``torch.distributed`` group (gloo,
 ``parallel/``) the stages shard across the processes and the archive stays
-the same. The host C++ of ``minicom_tpu/native`` is compiled from its
-sources in place (``native/__init__.py``).
+the same. The host C++ is this package's own (``native/*.cpp``, built at
+first use by ``native/__init__.py``).
 
-This package never imports jax or ``minicom_tpu``.
+This package never imports jax or ``minicom_tpu``, and reads no file of
+it.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,14 @@
-"""Host C++ of the pipeline, compiled from ``minicom_tpu/native/*.cpp`` in
-place (one source holds the format-critical diff grammar and range coders for
-both packages) into ``minicom_tpu_torch/_build/``, and bound with ctypes.
+"""Host C++ of the pipeline: the seven sources beside this file (the
+format-critical diff grammar, range coders and dz matcher, the FASTQ parser,
+the realign probe, the merge probe and scorer, and the host twins of the
+sketch and vote kernels), compiled at first use, never at import, into
+``minicom_tpu_torch/_build/`` and bound with ctypes.
+
+The sources began as byte-for-byte copies of ``minicom_tpu/native/*.cpp`` at
+commit 15e3f81a1affa071cf677edbe96a18b657d467f7. This package owns them from
+then on: a change here leaves the JAX package alone, and
+``tests/test_torch_native.py`` holds every entry point to the JAX package's
+on the same inputs.
 
 ``build_shared`` is also the builder of the CUDA kernels (``ops/cuda.py``):
 the output name carries a hash of the sources and the command, so a changed
@@ -20,9 +28,9 @@ import subprocess
 
 import numpy as np
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
+_PKG = os.path.dirname(_SRC_DIR)
 _BUILD_DIR = os.path.join(_PKG, "_build")
-_SRC_DIR = os.path.join(os.path.dirname(_PKG), "minicom_tpu", "native")
 _SRCS = [os.path.join(_SRC_DIR, f) for f in (
     "diffcodec.cpp", "rangecoder.cpp", "realign.cpp", "fastq.cpp",
     "consensus.cpp", "sketch.cpp", "dnalz.cpp")]

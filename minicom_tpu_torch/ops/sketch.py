@@ -4,7 +4,7 @@ windowed contig sketch of the merge stage.
 Each wrapper launches its CUDA kernel (``csrc/sketch.cu``) on a CUDA tensor
 and runs its plain PyTorch version on a CPU tensor; both compute the same
 function, bit for bit, as the JAX package's device code and the host twins
-in ``minicom_tpu/native/sketch.cpp``.
+in ``native/sketch.cpp``.
 
 The plain versions carry u32 values in int64 (CPU PyTorch has no shifts or
 compares on uint32) and mask every multiply of ``mix32`` to 32 bits: the
