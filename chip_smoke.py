@@ -133,26 +133,38 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      cut to 100,000 reads and one repeat (the default profile at seed 7 is
      phase 3's input): each must be correct (roundtrip exact, archives of
      the cold, timed and traced runs identical), its timed compress must
-     launch the cell's kernels, and a single-end unordered codec=auto cell
-     of the default profile must write phase 3's codec=auto cuda archive.
-     Prints the cell's rates, archive, stage walls, device seconds and
-     bytes, and the traced run's busy share.
+     launch the cell's ``kernels`` and its timed decompress its
+     ``decode_kernels``, and a single-end cell of the default profile must
+     write phase 3's cuda archive of its settings (``PHASE3_ARCHIVE``:
+     codec=auto, codec=device, order with codec=auto). Prints the cell's
+     rates, archive, launches of compress and decompress, stage walls,
+     device seconds and bytes, and the traced run's busy share.
   10. codec table: ``tools/codecs_table_torch.py``'s ``main`` on phase 3's
      100k codec=auto cuda archive, its on-device codecs on the card: every
      device trial decodes back exactly (the tool exits otherwise), each
      launches the rANS encode, and the run launches both the rANS encode
      and decode (kernels (f)+(g)), the encodes as many times as its rows
      count (the tool's set-up codes one small stream apart from them). Prints the device_vs_host line and the phase's wall.
+  11. kernel bench: ``tools/kernel_bench_torch.py``'s ``main`` at scale 1
+     (the JAX tool's rows and shapes, and the cluster step's pieces at 2^20
+     reads), the launches counted from 0 around it: each kernel timed cold
+     (L2 flushed before each launch) and warm (CUDA graphs) against the
+     count of its work. Fails on a missing row, a call that did not launch
+     its kernels once each, a share of the bound over 1.05 cold, or a cold
+     time under 0.95 of the warm one. Prints the table and the phase's
+     wall.
 Three lines end the output: the script's whole wall; a JSON object with
 each kernel's numbers
 (bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
 ops_bound_ms: the integer operations its function needs, see ``OPS``, over
-16.75 T/s; bound_ms: the larger of the two); and {"ok": true, "device":
-{...}}. ``rans_times.py``, ``sketch_times.py`` and
-``consensus_times.py`` run phase 1's checks of one kernel alone. The rows
-of the step's kernels give ms and bound_ms at 5,000,000 reads, ms_at_2p20
-at 2^20, and plain_ms at ``plain_reads`` reads (the vote's plain version
-needs a [span, 4] count table: 2^20 reads).
+16.75 T/s; bound_ms: the larger of the two; ms_cold and share_cold: phase
+11's cold time and share of its row ``cold_row``, at the kernel bench's
+shapes); and {"ok": true, "device": {...}}. ``rans_times.py``,
+``sketch_times.py`` and ``consensus_times.py`` run phase 1's checks of one
+kernel alone. The rows of the step's kernels give ms and bound_ms at
+5,000,000 reads, ms_at_2p20 at 2^20, and plain_ms at ``plain_reads``
+reads (the vote's plain version needs a [span, 4] count table: 2^20
+reads).
 """
 
 from __future__ import annotations
@@ -1951,25 +1963,28 @@ def _step_exact(tag, c, k, span):
     return pieces, max(err, e)
 
 
-def _step_bounds(N, L, k, span, nseg, rebuilt):
-    """Bytes and integer operations of each kernel's function and of the
+def _step_work(N, L, k, span, nseg, rebuilt) -> dict:
+    """(bytes, integer operations) of each kernel's function and of the
     whole step (``OPS``): each input read once, each output written once."""
     seg_out = 4 * (3 * N + 2 * nseg + 2)
-    b = {
-        "mtc_step_keys": _bound(24 * N + rebuilt * k, N * OPS["step_key"]
-                                + rebuilt * k * OPS["step_rebuild_base"]),
-        "mtc_step_segments": _bound(20 * N + seg_out,
-                                    N * OPS["segment_item"]),
-        "mtc_step_vote": _bound(N * (L + 16) + 8 * nseg + 5 * span,
-                                N * L * OPS["vote_base"]
-                                + span * OPS["step_column"]),
+    return {
+        "mtc_step_keys": (24 * N + rebuilt * k, N * OPS["step_key"]
+                          + rebuilt * k * OPS["step_rebuild_base"]),
+        "mtc_step_segments": (20 * N + seg_out, N * OPS["segment_item"]),
+        "mtc_step_vote": (N * (L + 16) + 8 * nseg + 5 * span,
+                          N * L * OPS["vote_base"]
+                          + span * OPS["step_column"]),
+        "step": (N * L + 5 * span + 12 * N,
+                 N * (L - k + 1) * kmer_min_ops(k)
+                 + N * (OPS["step_key"] + OPS["segment_item"])
+                 + N * L * OPS["vote_base"] + span * OPS["step_column"]),
     }
-    b["step"] = _bound(N * L + 5 * span + 12 * N,
-                       N * (L - k + 1) * kmer_min_ops(k)
-                       + N * (OPS["step_key"] + OPS["segment_item"])
-                       + N * L * OPS["vote_base"]
-                       + span * OPS["step_column"])
-    return b
+
+
+def _step_bounds(N, L, k, span, nseg, rebuilt):
+    """``_bound`` of each piece of ``_step_work``."""
+    return {name: _bound(*w) for name, w in
+            _step_work(N, L, k, span, nseg, rebuilt).items()}
 
 
 def _vote_ms(c, seg, span):
@@ -2250,9 +2265,17 @@ def phase8_sharded_step(dev, tmp, store):
           f"one-card references {t_ref:.1f} s)")
 
 
-def phase9_bench(dev, tmp, auto_archive):
+# phase 3's cuda archive that a 100k cell of the default profile must write,
+# by the cell's (order, paired, codec)
+PHASE3_ARCHIVE = {(False, False, "auto"): "codec=auto",
+                  (False, False, "device"): "codec=device",
+                  (True, False, "auto"): "order, codec=auto"}
+
+
+def phase9_bench(dev, tmp, same):
     """Each cell of the benchmark cut to 100,000 reads and one repeat; the
-    launches are counted from 0 around each cell."""
+    launches are counted from 0 around each cell. ``same``: phase 3's cuda
+    archives by tag."""
     with open(bench_torch.BENCHMARK) as f:
         cells = json.load(f)["workloads"]
     for cell in cells:
@@ -2270,17 +2293,22 @@ def phase9_bench(dev, tmp, auto_archive):
         _require(launched, cell["kernels"], f"the bench's cell {name}")
         _require(r["launches"], cell["kernels"],
                  f"the bench's timed compress ({name})")
+        _require(r["decode_launches"], cell["decode_kernels"],
+                 f"the bench's timed decompress ({name})")
         st = r["settings"]
-        if (r["profile"], st["order"], st["paired"], st["codec"]) == (
-                "default", False, False, "auto"):
+        tag = PHASE3_ARCHIVE.get((st["order"], st["paired"], st["codec"]))
+        held = "held to no phase-3 archive"
+        if r["profile"] == "default" and tag is not None:
             _same_archive(os.path.join(workdir, bench_torch.ARCHIVE),
-                          auto_archive, f"the bench's cell {name} at 100k "
-                          "and phase 3's codec=auto")
+                          same[tag], f"the bench's cell {name} at 100k "
+                          f"and phase 3's {tag}")
+            held = f"equal to phase 3's {tag} archive"
         print(f"[9] bench {name}, {r['n_reads']} x {r['read_length']} bp: "
               f"correct; encode {r['encode_MBps']:.3f} MB/s, decode "
               f"{r['decode_MBps']:.3f} MB/s, archive {r['archive_bytes']} B "
-              f"({r['archive_bits_per_base']:.6f} bit/base), launches "
-              f"{json.dumps(r['launches'])}, peak device memory "
+              f"({r['archive_bits_per_base']:.6f} bit/base, {held}), "
+              f"launches {json.dumps(r['launches'])}, decode launches "
+              f"{json.dumps(r['decode_launches'])}, peak device memory "
               f"{r['peak_device_bytes']} B; device blocked "
               f"{r['device_blocked_s']:.4f} s for "
               f"{r['device_transfer_bytes']} B; traced busy share "
@@ -2353,6 +2381,63 @@ def phase10_codecs_table(tmp, arc):
     print(f"[10] phase 10 took {wall:.1f} s")
 
 
+# each kernel's row in tools/kernel_bench_torch.py
+BENCH_ROWS = {"mtc_sketch_reads": "sketch_reads_cuda",
+              "mtc_sketch_windowed": "sketch_windowed_cuda",
+              "mtc_consensus_vote": "consensus_vote_cuda",
+              "mtc_rans_encode": "rans_encode_cuda",
+              "mtc_rans_decode": "rans_decode_cuda",
+              "mtc_popcount_verify": "popcount_verify_cuda",
+              "mtc_step_keys": "cluster_step_keys_cuda",
+              "mtc_step_segments": "cluster_step_segments_cuda",
+              "mtc_step_vote": "cluster_step_vote_cuda"}
+
+
+def phase11_kernel_bench(tmp) -> dict:
+    """``tools/kernel_bench_torch.py``'s main at scale 1 on the card, the
+    launches counted from 0 around it (the tool itself raises unless every
+    timed call launched its kernels once each). Fails on a missing row, an
+    entry that did not launch each of its kernels once, a share_cold over
+    1.05 or an ms_cold under 0.95 ms_warm. Returns the rows."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_bench_torch", os.path.join(ROOT, "tools",
+                                           "kernel_bench_torch.py"))
+    tool = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = os.path.join(tmp, "kernels.json")
+    t0 = time.perf_counter()
+    cuda.launches.clear()
+    rc = tool.main(["--out", out])
+    launched = dict(cuda.launches)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[11] the kernel bench exited {rc}")
+    _require(launched, BENCH_ROWS, "the kernel bench")
+    with open(out) as f:
+        rows = json.load(f)["rows"]
+    faults = [f"{name}: missing" for name in tool.ROWS if name not in rows]
+    for name, r in rows.items():
+        print(f"[11] {name}: cold {r['ms_cold']:.5f} ms (quarter "
+              f"{r['ms_cold_quarter']:.5f}; clean L2 {r['ms_cold_clean']:.5f}"
+              f"), warm {r['ms_warm']:.5f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), share cold {r['share_cold']:.4f} / clean "
+              f"{r['share_cold_clean']:.4f} / warm {r['share_warm']:.4f}, "
+              f"{r['GBps_cold']:.1f} GB/s cold, {r['rw_bytes']} B, launches "
+              f"{json.dumps(r['launches'])}")
+        if r["launches"] != {k: 1 for k in r["kernels"]}:
+            faults.append(f"{name}: launches {r['launches']}, want "
+                          f"{r['kernels']} once each")
+        if r["share_cold"] > 1.05:
+            faults.append(f"{name}: share_cold {r['share_cold']:.4f} > 1.05")
+        if r["ms_cold"] < 0.95 * r["ms_warm"]:
+            faults.append(f"{name}: ms_cold {r['ms_cold']:.5f} < 0.95 "
+                          f"ms_warm {r['ms_warm']:.5f}")
+    print(f"[11] phase 11 took {wall:.1f} s")
+    if faults:
+        raise AssertionError("[11] " + "; ".join(faults))
+    return rows
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2:])
@@ -2388,12 +2473,16 @@ def main() -> int:
         phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same)
         steps, store = phase7_cluster_step(dev, fq, report)
         phase8_sharded_step(dev, tmp, store)
-        phase9_bench(dev, tmp, same["codec=auto"])
+        phase9_bench(dev, tmp, same)
         phase10_codecs_table(tmp, same["codec=auto"])
+        cold = phase11_kernel_bench(tmp)
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
                     mtc_popcount_verify=ver["mtc_popcount_verify"], **steps)
-    kernels = [dict(report[k], launches=launched[k]) for k in
+    kernels = [dict(report[k], launches=launched[k],
+                    ms_cold=cold[BENCH_ROWS[k]]["ms_cold"],
+                    share_cold=cold[BENCH_ROWS[k]]["share_cold"],
+                    cold_row=BENCH_ROWS[k]) for k in
                ("mtc_sketch_reads", "mtc_sketch_windowed",
                 "mtc_consensus_vote", "mtc_rans_encode", "mtc_rans_decode",
                 "mtc_popcount_verify") + STEP_KERNELS]

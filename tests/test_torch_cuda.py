@@ -9,11 +9,14 @@ card (which has no jax, so without the repo conftest):
 consensus`` take the other kernels alone, ``-k sketch_reads`` the read
 minimizer, ``-k step`` the fused cluster step, ``-k mesh`` the sharded step
 in two ranks on one card, ``-k accounting`` the counted crossings between
-host and card).
+host and card, ``-k kernel_bench`` the kernel table of
+``tools/kernel_bench_torch.py`` at an eighth of its sizes).
 """
 
 import importlib.util
+import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -839,6 +842,25 @@ def test_verify_kernel_matches_plain(dev):
     got = popcount_verify(a.to(dev), b.to(dev)).cpu().numpy()
     assert cuda.launches["mtc_popcount_verify"] == n0 + 1
     np.testing.assert_array_equal(got, popcount_verify(a, b).numpy())
+
+
+def test_kernel_bench_tool_at_an_eighth(dev, tmp_path):
+    """tools/kernel_bench_torch.py at scale 8: every row, each named kernel
+    launched once by its entry, cold and warm times, no share above 1.05
+    (a count or a timing at fault would show here)."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_bench_torch", os.path.join(os.path.dirname(__file__), "..",
+                                           "tools", "kernel_bench_torch.py"))
+    tool = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = tmp_path / "kernels.json"
+    assert tool.main(["--scale", "8", "--out", str(out)]) == 0
+    rows = json.loads(out.read_text())["rows"]
+    assert list(rows) == list(tool.ROWS)
+    for name, r in rows.items():
+        assert r["launches"] == {k: 1 for k in r["kernels"]}, name
+        assert r["ms_cold"] > 0 and r["ms_warm"] > 0, name
+        assert r["share_cold"] <= 1.05, (name, r["share_cold"])
 
 
 def _genome_fastq(path, rng, n, L=100):
