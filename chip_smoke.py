@@ -47,8 +47,9 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      call that makes other than one launch fails the phase; and the read
      minimizer per ``sketch_reads_flat`` call (reads, k, launches, host
      wall, device ms; the bound of that work): more launches than calls
-     fail the phase. Every compress and decompress of phase 2 (2d, 2o
-     and 2p too) prints its device seconds and bytes by stage (the
+     fail the phase. Every compress and decompress of phase 2 (and 2d,
+     and of every cell of phase 9) prints its device seconds and bytes by
+     stage (the
      summary's device_<stage>_s and device_<stage>_bytes: the host wall
      spent in crossings between host and card, and the bytes that crossed)
      and their seconds over the run's wall; a stage whose device seconds
@@ -66,17 +67,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      decompress: at most one decode launch per device-coded stream (two for
      dzt, which has two coded planes), and at most one encode launch per
      coded plane of every candidate codec tried for a stream.
-  2o. order-preserving: compress(order=True) + decompress of phase 3's
-     100k set; the decoded file must equal the input's sequence lines in
-     input order, byte for byte, the archive phase 3's ORDER one; the
-     cluster and merge kernels must have launched during compress.
-  2p. paired-end: phase 3's mate files; compress(reads_path2=) +
-     decompress to two files; the multiset of (line i of file 1, line i
-     of file 2) pairs must equal the input's pairs, the archive phase 3's
-     PE one; the same kernels must have launched. The cells
-     se-5M-100bp-device-codec, se-5M-100bp-order and pe-5M-100bp-default
-     of ``bench_torch.py`` run these three modes at 5M with the same
-     checks.
+  (2o and 2p, the order-preserving and paired-end runs on phase 3's set,
+     are phase 9's order and PE cells, which carry their checks.)
   4. realign verify: on the 100,000-read set, the popcount verify kernel
      recomputes the mismatch count of every placement the host realign probe
      chose at the first threshold, and must agree with it.
@@ -148,10 +140,15 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      ``decode_kernels``, and a single-end cell of the default profile must
      write phase 3's cuda archive of its settings (``PHASE3_ARCHIVE``:
      codec=auto, codec=device, order with codec=auto, PE with codec=auto),
-     and its traced run must report no ``trace_span_faults``. Prints the
-     cell's rates, archive, launches of compress and decompress, stage
-     walls, device seconds and bytes, the traced run's busy share, its
-     spans, their cost untraced and the busy share by stage.
+     and its traced run must report no ``trace_span_faults``; a stage's
+     device seconds must not exceed its wall (as in phase 2). The order and
+     PE cells' archives (phase 3's) are decoded once more on the card: the
+     order cell's lines must equal the input's in input order, byte for
+     byte, and the PE cell's multiset of (line i of file 1, line i of file
+     2) pairs the input's pairs. Prints the cell's rates, archive, launches
+     of compress and decompress, stage walls, device seconds and bytes, the
+     traced run's busy share, its spans, their cost untraced and the busy
+     share by stage.
   10. codec table: ``tools/codecs_table_torch.py``'s ``main`` on phase 3's
      100k codec=auto cuda archive, its on-device codecs on the card: every
      device trial decodes back exactly (the tool exits otherwise), each
@@ -166,6 +163,23 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      its kernels once each, a share of the bound over 1.05 cold, or a cold
      time under 0.95 of the warm one. Prints the table and the phase's
      wall.
+  12. configurations: every entry of CONFIGS_torch.json (the reference's
+     documented command lines at 50-256 bp, and gzip input; 1,000,000
+     reads each, ``configs_torch.py``), its inputs written by a child
+     interpreter started at the top of the run. First each main-path
+     kernel against its plain version and host twin at the entries' new
+     shapes: the read minimizer at L = 50 and 75 (k 17, 23, 25, 31) and at
+     k = 23 and 25 (L 100, 101, 150, 256), the contig sketch at each new
+     (k, w) on rows of every rung up to 32,768 bases, the vote on the
+     first cluster round at L = 50, 75, 101 and 256. Then each entry:
+     compress on the card with its settings, the launch counts set to 0
+     just before it (the read minimizer, the contig sketch and the vote
+     must each launch), the archive's SHA-256 its pin (the JAX package's
+     archive on the CPU, ``tools/reference_sha256.py --config``), and a
+     decompress on the card whose reads equal the input's as a multiset.
+     Prints one line a configuration (resolved k, w and dictionaries,
+     archive bytes and bits a base, walls, stage walls, launches and
+     device ms of each kernel) and the phase's wall.
 Three lines end the output: the script's whole wall; a JSON object with
 each kernel's numbers
 (bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
@@ -200,6 +214,7 @@ import numpy as np
 import torch
 
 import bench_torch
+import configs_torch
 from bench import make_dataset
 from bench_torch import decoded_rows, input_rows, sorted_rows
 from minicom_tpu_torch import CompressorConfig, compressor, native
@@ -568,12 +583,13 @@ def phase1_sketch_windowed(dev, report):
         ms=ms, plain_ms=plain_ms, **_bound(nbytes, need * OPS["kmer_window"]))
 
 
-def phase1_consensus(dev, fastq_path, report):
+def _check_vote(dev, fastq_path, tag):
     """The vote on the first cluster round's ejection-pass members of the
-    phase-3 dataset, as the round calls it (its clusters' member and column
-    pointers): one launch, equal to the plain version, the host twin and
-    the tensor entry (the same members as one cluster, in their own tiles);
-    the launch timed from CUDA graphs (a launch from Python outlasts it)."""
+    reads of ``fastq_path`` (at their read length's default settings), as
+    the round calls it (its clusters' member and column pointers): one
+    launch, equal to the plain version, the host twin and the tensor entry
+    (the same members as one cluster, in their own tiles). Returns the max
+    |diff| (0) and what timing the launch needs."""
     codes = fastq.read_fastq_codes(fastq_path)
     cfg = CompressorConfig().resolve(codes.shape[1])
     cls = classify.classify(codes, cfg)
@@ -593,24 +609,35 @@ def phase1_consensus(dev, fastq_path, report):
     finally:
         cluster.consensus_vote_flat = consensus.consensus_vote_flat
     _, rd, col, seg_ptr, col_ptr, span = calls[0][:6]
-    M, L = len(rd), codes.shape[1]
+    L = codes.shape[1]
     n0 = cuda.launches["mtc_consensus_vote"]
     ref, diffs = consensus.consensus_vote_flat(codes_dev, rd, col, seg_ptr,
                                                col_ptr, span)
     if cuda.launches["mtc_consensus_vote"] != n0 + 1:
-        raise AssertionError("consensus_vote_flat: not one launch")
+        raise AssertionError(f"{tag} consensus_vote_flat: not one launch")
     rd_d, col_d = (torch.from_numpy(x).to(dev) for x in (rd, col))
     pref, pdiffs = consensus._consensus_plain(codes_dev, rd_d, col_d, span,
                                               True)
-    err = max(_equal("consensus ref vs plain", ref, pref.cpu()),
-              _equal("consensus diffs vs plain", diffs, pdiffs.cpu()))
+    err = max(_equal(f"{tag} consensus ref vs plain", ref, pref.cpu()),
+              _equal(f"{tag} consensus diffs vs plain", diffs,
+                     pdiffs.cpu()))
     href, hdiffs = native.consensus_host(cls.codes_sub, rd, col, seg_ptr,
                                          col_ptr, span, True, True)
-    _equal("consensus ref vs host", ref, href)
-    _equal("consensus diffs vs host", diffs, hdiffs)
+    _equal(f"{tag} consensus ref vs host", ref, href)
+    _equal(f"{tag} consensus diffs vs host", diffs, hdiffs)
     tref, tdiffs = consensus.consensus_vote(codes_dev, rd_d, col_d, span)
-    _equal("consensus ref, one cluster", tref.cpu(), ref)
-    _equal("consensus diffs, one cluster", tdiffs.cpu(), diffs)
+    _equal(f"{tag} consensus ref, one cluster", tref.cpu(), ref)
+    _equal(f"{tag} consensus diffs, one cluster", tdiffs.cpu(), diffs)
+    return err, (codes_dev, rd, col, seg_ptr, col_ptr, span, rd_d, col_d,
+                 L)
+
+
+def phase1_consensus(dev, fastq_path, report):
+    """The vote of ``_check_vote`` on the phase-3 dataset; the launch timed
+    from CUDA graphs (a launch from Python outlasts it)."""
+    err, (codes_dev, rd, col, seg_ptr, col_ptr, span, rd_d, col_d,
+          L) = _check_vote(dev, fastq_path, "phase 1")
+    M = len(rd)
     t0 = time.perf_counter()
     plan, n_tiles, cap = consensus._upload(rd, col, seg_ptr, col_ptr, L, dev)
     torch.cuda.synchronize()
@@ -1328,75 +1355,6 @@ def phase2_device_codecs(dev, fq, same):
           f"launches {dec_lt.launched['mtc_rans_decode']} <= {most_dec} "
           f"coded planes: {dec_k['mtc_rans_decode']:.6f} device s")
     return enc.launched, dec_lt.launched
-
-
-def _mode_roundtrip(dev, tag, fq, cfg, auto_bytes, want, fq2=None):
-    """compress + decompress of one mode on dev, timed, with the launch
-    counts of compress; the archive must equal ``want``. Prints the phase's
-    numbers and returns (launched, decoded paths)."""
-    arc = os.path.join(os.path.dirname(fq), f"{tag}.mtc")
-    outs = [os.path.join(os.path.dirname(fq), f"{tag}_{i}.reads")
-            for i in (1, 2)]
-    with _LaunchTimer() as lt:
-        t0 = time.perf_counter()
-        summary = compressor.compress(fq, arc, cfg, reads_path2=fq2,
-                                      device=dev)
-        enc_s = time.perf_counter() - t0
-    kernel_s = lt.seconds()
-    t0 = time.perf_counter()
-    dsum = compressor.decompress(arc, outs[0], outs[1], device=dev)
-    dec_s = time.perf_counter() - t0
-    _same_archive(arc, want, f"{tag} and phase 3's")
-    mb = summary["input_bytes"] / 1e6
-    nb = summary["archive_bytes"]
-    print(f"[{tag}] encode {enc_s:.2f} s = {mb / enc_s:.3f} MB/s, decode "
-          f"{dec_s:.2f} s = {mb / dec_s:.3f} MB/s, archive {nb} B (ratio "
-          f"{summary['input_bytes'] / nb:.3f}; {nb / auto_bytes:.6f} x the "
-          f"unordered archive's {auto_bytes} B)")
-    print(f"[{tag}] streams {{name: [codec, raw B, coded B]}}: " + json.dumps(
-        {e["name"]: [e["codec"], e["rlen"], e["clen"]]
-         for e in container.read_header(arc)["streams"]}))
-    print(f"[{tag}] encode stages s: " + json.dumps(summary["timings_s"]))
-    print(f"[{tag}] decode stages s: " + json.dumps(dsum["timings_s"]))
-    print(f"[{tag}] kernel launches during compress: "
-          + json.dumps(lt.launched))
-    print(f"[{tag}] kernel device seconds during compress: "
-          f"{json.dumps(kernel_s)}; {sum(kernel_s.values()) / enc_s:.6f} of "
-          "the encode wall")
-    _device_by_stage(tag, "encode", summary, enc_s)
-    _device_by_stage(tag, "decode", dsum, dec_s)
-    return lt.launched, outs
-
-
-def phase2_order(dev, fq, same):
-    """order=True on phase 3's 100k set; the archive must equal phase 3's
-    ORDER cuda archive."""
-    launched, (dec, _) = _mode_roundtrip(
-        dev, "2o", fq, CompressorConfig(order=True),
-        os.path.getsize(same["codec=auto"]), same["order, codec=auto"])
-    want = input_rows(fq)
-    if not np.array_equal(decoded_rows(dec, len(want), 100), want):
-        raise AssertionError("order-preserving roundtrip is not line for "
-                             "line")
-    print(f"[2o] {len(want)} lines decoded in input order, byte for byte")
-    return launched
-
-
-def phase2_pe(dev, m1, m2, same):
-    """The mate files of phase 3; the archive must equal phase 3's PE cuda
-    archive."""
-    launched, (o1, o2) = _mode_roundtrip(
-        dev, "2p", m1, CompressorConfig(), os.path.getsize(same["codec=auto"]),
-        same["PE, codec=auto"], fq2=m2)
-    w1, w2 = input_rows(m1), input_rows(m2)
-    got = sorted_rows(np.concatenate([decoded_rows(o1, len(w1), 100),
-                                      decoded_rows(o2, len(w2), 100)],
-                                     axis=1))
-    if not np.array_equal(got, sorted_rows(np.concatenate([w1, w2],
-                                                           axis=1))):
-        raise AssertionError("paired-end roundtrip does not keep the pairs")
-    print(f"[2p] {len(w1)} pairs decoded, the multiset of pairs exact")
-    return launched
 
 
 def _same_archive(a, b, what):
@@ -2308,6 +2266,39 @@ PHASE3_ARCHIVE = {(False, False, "auto"): "codec=auto",
                   (False, True, "auto"): "PE, codec=auto"}
 
 
+def _mode_decode(dev, name, workdir, paired):
+    """One more decompress of a 100k order or PE cell's archive (phase 3's):
+    the decoded lines must equal the input's in input order, byte for byte
+    (order), or the multiset of (line i of file 1, line i of file 2) pairs
+    must equal the input's (PE)."""
+    fq = os.path.join(workdir, bench_torch.FASTQ)
+    fqs = [f"{fq}.1", f"{fq}.2"] if paired else [fq]
+    outs = [os.path.join(workdir, f"mode_{i}.reads") for i in (1, 2)]
+    t0 = time.perf_counter()
+    compressor.decompress(os.path.join(workdir, bench_torch.ARCHIVE), *outs,
+                          device=dev)
+    wall = time.perf_counter() - t0
+    want = np.concatenate([input_rows(f) for f in fqs], axis=1)
+    got = np.concatenate([decoded_rows(o, len(want), 100)
+                          for o in outs[:len(fqs)]], axis=1)
+    if paired:
+        if not np.array_equal(sorted_rows(got), sorted_rows(want)):
+            raise AssertionError(f"[9] {name}: paired-end roundtrip does not "
+                                 "keep the pairs")
+        what = f"{len(want)} pairs decoded, the multiset of pairs exact"
+    else:
+        if not np.array_equal(got, want):
+            raise AssertionError(f"[9] {name}: order-preserving roundtrip "
+                                 "is not line for line")
+        what = (f"{len(want)} lines decoded in input order, byte for "
+                "byte")
+    print(f"[9] {name}: {what} ({wall:.2f} s); streams {{name: [codec, raw "
+          "B, coded B]}: " + json.dumps(
+              {e["name"]: [e["codec"], e["rlen"], e["clen"]] for e in
+               container.read_header(os.path.join(
+                   workdir, bench_torch.ARCHIVE))["streams"]}))
+
+
 def phase9_bench(dev, tmp, same):
     """Each cell of the benchmark cut to 100,000 reads and one repeat; the
     launches are counted from 0 around each cell. ``same``: phase 3's cuda
@@ -2337,11 +2328,21 @@ def phase9_bench(dev, tmp, same):
         st = r["settings"]
         tag = PHASE3_ARCHIVE.get((st["order"], st["paired"], st["codec"]))
         held = "held to no phase-3 archive"
+        arc = os.path.join(workdir, bench_torch.ARCHIVE)
         if r["profile"] == "default" and tag is not None:
-            _same_archive(os.path.join(workdir, bench_torch.ARCHIVE),
-                          same[tag], f"the bench's cell {name} at 100k "
+            _same_archive(arc, same[tag], f"the bench's cell {name} at 100k "
                           f"and phase 3's {tag}")
             held = f"equal to phase 3's {tag} archive"
+        if not r["roundtrip_exact"]:
+            raise AssertionError(f"[9] {name}: roundtrip not exact")
+        for what, sums, wall in (
+                ("encode", r["stage_s"], r["encode_s"]),
+                ("decode", r["decode_stage_s"], r["decode_s"])):
+            _device_by_stage(f"9 {name}", what, dict(
+                {f"device_{s}_{u}": r[f"device_{s}_{u}"] for s in sums
+                 for u in ("s", "bytes")}, timings_s=sums), wall)
+        if st["order"] or st["paired"]:
+            _mode_decode(dev, name, workdir, st["paired"])
         print(f"[9] bench {name}, {r['n_reads']} x {r['read_length']} bp: "
               f"correct; encode {r['encode_MBps']:.3f} MB/s, decode "
               f"{r['decode_MBps']:.3f} MB/s, archive {r['archive_bytes']} B "
@@ -2362,6 +2363,13 @@ def phase9_bench(dev, tmp, same):
                    if k in r["stage_s"]}))
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.splitlines()[0]
+
+
 def phase0_device():
     """cuda:0 with its name and power limit printed and the kernels and the
     host library built; None where there is no CUDA device."""
@@ -2369,10 +2377,7 @@ def phase0_device():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return None
     dev = torch.device("cuda", 0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.splitlines()[0]
-    print(smi)
+    print(_smi())
     t0 = time.perf_counter()
     cuda.lib()
     t1 = time.perf_counter()
@@ -2484,15 +2489,224 @@ def phase11_kernel_bench(tmp) -> dict:
     return rows
 
 
+# The kernels every compress launches: the read minimizer, the contig
+# sketch and the vote
+MAIN_PATH = ("mtc_sketch_reads", "mtc_sketch_windowed", "mtc_consensus_vote")
+# Phase 12's kernel shapes: those of CONFIGS_torch.json's entries that no
+# earlier phase gives a kernel. The read minimizer at each new (L, k);
+CONFIG_SHAPE_ROWS = 1 << 15
+CONFIG_READ_SHAPES = ((50, (17, 23, 25, 31)), (75, (17, 23, 25, 31)),
+                      (100, (23, 25)), (101, (23, 25)), (150, (23, 25)),
+                      (256, (23, 25)))
+# the contig sketch at each new (k, w), on rows of every rung up to the
+# longest contigs of a 256 bp run (7,375 bases at 200,000 reads of
+# L256-default, the port on the CPU), a rung's rows as many as the merge
+# stage's tile (2048) or, on long rungs, fewer (the plain version holds
+# [rows, Lmax] tensors);
+CONFIG_WINDOWS = ((17, 3), (17, 20), (23, 5), (25, 15), (25, 20), (31, 97))
+CONFIG_RUNGS = ((128, 2048), (512, 2048), (2048, 2048), (8192, 1024),
+                (32768, 256))
+# the vote at each new read length (L % 4 != 0 takes the scalar loads)
+CONFIG_VOTE_L = (50, 75, 101, 256)
+
+
+def _check_windowed(dev, rng, k, w, cap=128) -> int:
+    """One call of the merge stage's contig-sketch entry point (one launch,
+    entries compacted on the card) over rows of every rung of
+    ``CONFIG_RUNGS`` in plan order, each row with its rung's slot count at
+    (k, w), against the batched plain version and the host twin. Rows:
+    empty, shorter than k, a palindromic run and a long repeat among random
+    ones. Returns the max |diff| (0)."""
+    lens = [np.array([0, k - 1, 600, 4000])]
+    for Lmax, rows in CONFIG_RUNGS:
+        lens.append(rng.integers(Lmax // 4 + 1 if Lmax > 128 else 0,
+                                 Lmax + 1, rows))
+    lens = np.sort(np.concatenate(lens)).astype(np.int64)
+    rung = np.array([_lmax_bucket(max(int(n), k + 1)) for n in lens])
+    mb = np.array([_batch_m(int(r), k, w, cap) for r in rung], np.int64)
+    we = np.minimum(w, rung - k + 1).astype(np.int32)
+    starts = np.r_[0, np.cumsum(lens)[:-1]].astype(np.int64)
+    ref = rng.integers(0, 4, int(lens.sum()), dtype=np.uint8)
+    for n, pattern in ((600, np.array([0, 3], np.uint8)),
+                       (4000, np.array([2], np.uint8))):
+        r = int(np.flatnonzero(lens == n)[0])
+        ref[starts[r]:starts[r] + n] = np.resize(pattern, n)
+    ref_d = torch.from_numpy(ref).to(dev)
+    n0 = cuda.launches["mtc_sketch_windowed"]
+    key, meta, nv = sketch.sketch_windowed_flat(ref_d, starts, lens, mb, k,
+                                                w)
+    if cuda.launches["mtc_sketch_windowed"] != n0 + 1:
+        raise AssertionError(f"[12] contig sketch k={k} w={w}: not one "
+                             "launch")
+    pk, pm, pn = sketch._sketch_windowed_flat_plain(ref_d, starts, lens, mb,
+                                                    k, w)
+    tag = f"[12] contig sketch k={k} w={w}"
+    err = max(_equal(f"{tag} nv", nv, pn), _equal(f"{tag} key", key, pk),
+              _equal(f"{tag} meta", meta, pm))
+    hk, hm, hn = native.sketch_windowed_host(ref, starts, lens, k, we,
+                                             mb.astype(np.int32),
+                                             int(mb.max()))
+    hv = np.arange(hk.shape[1])[None, :] < hn[:, None]
+    _equal(f"{tag} nv vs host", nv, hn)
+    _equal(f"{tag} key vs host", key, hk[hv])
+    _equal(f"{tag} meta vs host", meta, hm[hv])
+    print(f"{tag}: {len(lens)} rows up to {int(lens.max())} bases, slots "
+          f"{sorted(set(mb.tolist()))}, {len(key)} entries kept "
+          f"({int((nv >= mb).sum())} rows full); one launch, equal to plain "
+          "and host")
+    return err
+
+
+def phase12_kernel_shapes(dev, tmp, report):
+    """Each main-path kernel against its plain version (and host twin) at
+    the shapes that CONFIGS_torch.json's entries give it and no earlier
+    phase does: the read minimizer at L = 50 and 75 for k in (17, 23, 25,
+    31), and at k = 23 and 25 for L in (100, 101, 150, 256), each on
+    2^15-row stores with the read counts that take 1, 2 and 4 lanes a read;
+    the contig sketch at each new (k, w) (``_check_windowed``); the vote on
+    the first cluster round of 2^15 reads of ``bench.make_dataset`` at L =
+    50, 75, 101 and 256 (``_check_vote``). Folds each kernel's max |diff|
+    into ``report``."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    sizes = reads_for_lanes(dev)
+    errs = dict.fromkeys(MAIN_PATH, 0)
+    for L, ks in CONFIG_READ_SHAPES:
+        codes = _reads_store(rng, CONFIG_SHAPE_ROWS, L)
+        c = torch.from_numpy(codes).to(dev)
+        for lanes, m in sizes.items():
+            errs["mtc_sketch_reads"] = max(
+                errs["mtc_sketch_reads"], _check_reads(
+                    dev, f"[12] sketch_reads {m} x {L} ({lanes} lanes a "
+                    "read)", codes, c, rng.integers(0, CONFIG_SHAPE_ROWS, m),
+                    ks))
+    t1 = time.perf_counter()
+    print(f"[12] read minimizer equal to plain and host at "
+          + ", ".join(f"L={L} k in {ks}" for L, ks in CONFIG_READ_SHAPES)
+          + f", {sorted(sizes.values())} reads (1, 2, 4 lanes a read) of "
+          f"2^15-row stores ({t1 - t0:.1f} s)")
+    for k, w in CONFIG_WINDOWS:
+        errs["mtc_sketch_windowed"] = max(errs["mtc_sketch_windowed"],
+                                          _check_windowed(dev, rng, k, w))
+    t2 = time.perf_counter()
+    for L in CONFIG_VOTE_L:
+        path = os.path.join(tmp, f"vote_{L}.fastq")
+        make_dataset(path, CONFIG_SHAPE_ROWS, L=L)
+        err, args = _check_vote(dev, path, f"[12] L={L}")
+        errs["mtc_consensus_vote"] = max(errs["mtc_consensus_vote"], err)
+        print(f"[12] consensus_vote_flat L={L}: {len(args[1])} members of "
+              f"the first cluster round of {CONFIG_SHAPE_ROWS} reads, span "
+              f"{args[5]}; one launch, equal to plain, host and the "
+              "one-cluster entry")
+        os.remove(path)
+    for name, err in errs.items():
+        report[name]["max_abs_err"] = max(report[name]["max_abs_err"], err)
+    print(f"[12] kernel shapes: read minimizer {t1 - t0:.1f} s, contig "
+          f"sketch {t2 - t1:.1f} s, vote {time.perf_counter() - t2:.1f} s")
+
+
+def _start_inputs(workdir) -> subprocess.Popen:
+    """A child interpreter (numpy, no torch) that writes every input of
+    CONFIGS_torch.json into ``workdir`` (``configs_torch.py``), printing
+    each path."""
+    return subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "configs_torch.py"), workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase12_configs(dev, tmp, writer, report):
+    """Each entry of CONFIGS_torch.json (the reference's documented command
+    lines, 50-256 bp reads and gzip input, 1,000,000 reads each) through
+    the main path on the card, after the kernels at the entries' shapes
+    (``phase12_kernel_shapes``): compress with the entry's settings, the
+    launch counts set to 0 just before it and read just after (each of the
+    read minimizer, the contig sketch and the vote at least once); the
+    archive's SHA-256 must be the entry's pin (the JAX package's archive);
+    decompress on the card, and the decoded reads must equal the input's as
+    a multiset. ``writer``: the child of ``_start_inputs``, started at the
+    top of ``main``. Prints one line a configuration and the phase's
+    wall."""
+    t_start = time.perf_counter()
+    print(f"[12] {_smi()}")
+    phase12_kernel_shapes(dev, tmp, report)
+    t0 = time.perf_counter()
+    out, err = writer.communicate()
+    if writer.returncode != 0:
+        raise AssertionError(f"[12] the inputs' writer exited "
+                             f"{writer.returncode}: {err}")
+    paths = out.split()
+    entries = configs_torch.load_configs()
+    print(f"[12] inputs of {len(entries)} configurations ready after "
+          f"{time.perf_counter() - t0:.1f} s more")
+    want, results = {}, {}
+    for entry, fq in zip(entries, paths, strict=True):
+        name, L, n = entry["name"], entry["L"], entry["reads"]
+        cfg = CompressorConfig(**entry["settings"])
+        rc = cfg.resolve(L)
+        arc, dec = (os.path.join(os.path.dirname(fq), name + x)
+                    for x in (".mtc", ".reads"))
+        with _LaunchTimer() as lt:
+            t0 = time.perf_counter()
+            summary = compressor.compress(fq, arc, cfg, device=dev)
+            enc_s = time.perf_counter() - t0
+        kernel_ms = {k: v * 1e3 for k, v in lt.seconds().items()}
+        _require(lt.launched, MAIN_PATH, f"[12] {name}'s compress")
+        digest = bench_torch._sha256(arc)
+        if digest != entry["reference_sha256"]:
+            raise AssertionError(
+                f"[12] {name}: the archive ({summary['archive_bytes']} B, "
+                f"{digest[:12]}) is not its pin, the JAX package's "
+                f"({entry['archive_bytes']} B, "
+                f"{entry['reference_sha256'][:12]})")
+        t0 = time.perf_counter()
+        dsum = compressor.decompress(arc, dec, device=dev)
+        dec_s = time.perf_counter() - t0
+        plain = os.path.join(os.path.dirname(fq), configs_torch.input_name(
+            dict(entry, gzip=False)))
+        if plain not in want:
+            want[plain] = sorted_rows(input_rows(plain))
+        if not np.array_equal(sorted_rows(decoded_rows(dec, n, L)),
+                              want[plain]):
+            raise AssertionError(f"[12] {name}: roundtrip is not exact")
+        nb = summary["archive_bytes"]
+        results[name] = dict(
+            k=rc.k, w=rc.contig_window, dicts=rc.num_dicts,
+            archive_bytes=nb, bits_per_base=8 * nb / (n * L),
+            encode_s=enc_s, decode_s=dec_s,
+            launches=lt.launched, kernel_ms=kernel_ms,
+            stage_s=summary["timings_s"], decode_stage_s=dsum["timings_s"])
+        print(f"[12] {name} ({n} x {L} bp{', gzip' if entry['gzip'] else ''};"
+              f" k {rc.k}, w {rc.contig_window}, {rc.num_dicts} dicts of "
+              f"{rc.dict_seg_len}, e {rc.diff_threshold}, S {rc.thr_step}, E "
+              f"{rc.max_threshold}, m {rc.first_minimizers}): archive {nb} B "
+              f"= its pin, {8 * nb / (n * L):.6f} bit/base; compress "
+              f"{enc_s:.2f} s, decompress {dec_s:.2f} s, roundtrip exact; "
+              f"launches {json.dumps(lt.launched)}, device ms "
+              + json.dumps({k: round(v, 4) for k, v in kernel_ms.items()})
+              + "; stages s " + json.dumps(summary["timings_s"])
+              + ", decode " + json.dumps(dsum["timings_s"]))
+        for path in (arc, dec):
+            os.remove(path)
+    print("[12] configurations: " + json.dumps(results))
+    print(f"[12] phase 12 took {time.perf_counter() - t_start:.1f} s")
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2:])
     t_start = time.perf_counter()
-    dev = phase0_device()
-    if dev is None:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     report = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp, \
+            contextlib.ExitStack() as stack:
+        # phase 12's inputs, written while the earlier phases run
+        os.makedirs(os.path.join(tmp, "configs"))
+        writer = stack.enter_context(_start_inputs(os.path.join(tmp,
+                                                                "configs")))
+        stack.callback(writer.kill)
+        dev = phase0_device()
         fq_small = os.path.join(tmp, "same.fastq")
         make_dataset(fq_small, N_SAME_BYTES)
         phase1_sketch_reads(dev, report)
@@ -2500,19 +2714,12 @@ def main() -> int:
         phase1_consensus(dev, fq_small, report)
         phase1_verify(dev, report)
         fq, arc, launched = phase2_end_to_end(dev, tmp)
-        _require(launched, ("mtc_sketch_reads", "mtc_sketch_windowed",
-                            "mtc_consensus_vote"), "compress")
+        _require(launched, MAIN_PATH, "compress")
         phase1_rans(dev, container.read_container(arc)[1], report)
         m1, m2, same = phase3_same_bytes(dev, fq_small, tmp)
         enc, dec = phase2_device_codecs(dev, fq_small, same)
         _require(enc, ("mtc_rans_encode",), "codec=device compress")
         _require(dec, ("mtc_rans_decode",), "codec=device decompress")
-        main_path = ("mtc_sketch_reads", "mtc_sketch_windowed",
-                     "mtc_consensus_vote")
-        _require(phase2_order(dev, fq_small, same), main_path,
-                 "order-preserving compress")
-        _require(phase2_pe(dev, m1, m2, same), main_path,
-                 "paired-end compress")
         ver = phase4_verify_path(dev, fq_small)
         _require(ver, ("mtc_popcount_verify",), "the realign verify path")
         phase5_resume(dev, fq_small, tmp, same["codec=auto"])
@@ -2522,6 +2729,7 @@ def main() -> int:
         phase9_bench(dev, tmp, same)
         phase10_codecs_table(tmp, same["codec=auto"])
         cold = phase11_kernel_bench(tmp)
+        phase12_configs(dev, tmp, writer, report)
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
                     mtc_popcount_verify=ver["mtc_popcount_verify"], **steps)
@@ -2529,9 +2737,8 @@ def main() -> int:
                     ms_cold=cold[BENCH_ROWS[k]]["ms_cold"],
                     share_cold=cold[BENCH_ROWS[k]]["share_cold"],
                     cold_row=BENCH_ROWS[k]) for k in
-               ("mtc_sketch_reads", "mtc_sketch_windowed",
-                "mtc_consensus_vote", "mtc_rans_encode", "mtc_rans_decode",
-                "mtc_popcount_verify") + STEP_KERNELS]
+               MAIN_PATH + ("mtc_rans_encode", "mtc_rans_decode",
+                            "mtc_popcount_verify") + STEP_KERNELS]
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,11 @@
 
 #ifdef _OPENMP
 #include <omp.h>
+#endif
+// libstdc++'s parallel mode only: a build with another standard library
+// (clang with libc++) sorts with std::sort
+#if defined(_OPENMP) && defined(__GLIBCXX__)
+#define MTC_PARALLEL_SORT 1
 #include <parallel/algorithm>
 #endif
 
@@ -241,7 +246,7 @@ int64_t realign_probe(
     auto cmp = [](const Entry& a, const Entry& b) {
         return a.k != b.k ? a.k < b.k : a.p < b.p;
     };
-#ifdef _OPENMP
+#ifdef MTC_PARALLEL_SORT
     __gnu_parallel::sort(tab.begin(), tab.end(), cmp);
 #else
     std::sort(tab.begin(), tab.end(), cmp);
@@ -258,36 +263,33 @@ int64_t realign_probe(
     // Verified candidates are reduced IN the scan to the best placement per
     // singleton under the claim order (pop, contig, offset, dir) — the exact
     // min the Python claim lexsort would compute over the full candidate
-    // list (pipeline/realign.py). A min-reduction is associative and the
-    // key is total (ties are byte-identical duplicate placements via
-    // different dicts), so per-thread partials merged afterwards give a
-    // thread-count-independent result, the output is bounded by n_sg (no
-    // grow-and-rescan retries — r05: the retry used to re-run the whole
-    // scan on big rungs), and the 7-13M-row claim sorts disappear.
-    struct Best { int32_t pop, cl, off; int8_t dir; };
-    const Best kNone{INT32_MAX, 0, 0, 0};
-    auto better = [](const Best& a, const Best& b) {
-        if (a.pop != b.pop) return a.pop < b.pop;
-        if (a.cl != b.cl) return a.cl < b.cl;
-        if (a.off != b.off) return a.off < b.off;
-        return a.dir < b.dir;
+    // list (pipeline/realign.py). The output is bounded by n_sg (no
+    // grow-and-rescan retries) and the 7-13M-row claim sorts disappear.
+    // One winner slot a singleton, shared by every thread: the placement
+    // packs into one 64-bit key whose unsigned order IS the claim order —
+    // pop (at most 2 L = 512) above the window's flat position
+    // ref_ptr[c] + off (increasing in c, then in off, since off + L <=
+    // clen) above dir — and a compare-and-swap keeps the least key. A
+    // minimum of a total order does not depend on the thread count or the
+    // schedule, so the winners do not either (ties are byte-identical
+    // duplicate placements via different dicts).
+    constexpr int kPosBits = 53;
+    if (ref_ptr[n_contigs] - ref_ptr[0] >= (1LL << kPosBits)) return -1;
+    const uint64_t kNone = ~0ULL;   // above every key: pop < 2^10 - 1
+    std::vector<uint64_t> best_key((size_t)n_sg, kNone);
+    auto claim = [](uint64_t* slot, uint64_t key) {
+        uint64_t cur = __atomic_load_n(slot, __ATOMIC_RELAXED);
+        while (key < cur &&
+               !__atomic_compare_exchange_n(slot, &cur, key, true,
+                                            __ATOMIC_RELAXED,
+                                            __ATOMIC_RELAXED)) {
+        }
     };
-    int max_threads = 1;
-#ifdef _OPENMP
-    max_threads = omp_get_max_threads();
-#endif
-    std::vector<std::vector<Best>> partials(
-        max_threads, std::vector<Best>((size_t)n_sg, kNone));
 
 #ifdef _OPENMP
 #pragma omp parallel
 #endif
     {
-        int tid = 0;
-#ifdef _OPENMP
-        tid = omp_get_thread_num();
-#endif
-        Best* best = partials[tid].data();
         std::vector<uint8_t> rc_read(L);
         std::vector<uint64_t> cw;   // packed contig + guard word
 #ifdef _OPENMP
@@ -384,10 +386,11 @@ int64_t realign_probe(
                                                         L, cost_budget))
                                         continue;
                                 }
-                                Best cand{pop, (int32_t)c, (int32_t)jj,
-                                          (int8_t)strand};
-                                if (better(cand, best[sgi]))
-                                    best[sgi] = cand;
+                                claim(best_key.data() + sgi,
+                                      ((uint64_t)pop << (kPosBits + 1)) |
+                                      ((uint64_t)(ref_ptr[c] - ref_ptr[0] +
+                                                  jj) << 1) |
+                                      (uint64_t)strand);
                             }
                         }
                         r = ge;
@@ -397,19 +400,23 @@ int64_t realign_probe(
         }
     }
 
-    // merge per-thread partials, emit winners in singleton order
+    // emit winners in singleton order; a window's contig is the last
+    // whose start lies at or before the window's flat position
     int64_t n_out = 0;
     for (int64_t i = 0; i < n_sg; ++i) {
-        Best b = partials[0][i];
-        for (int t = 1; t < max_threads; ++t)
-            if (better(partials[t][i], b)) b = partials[t][i];
-        if (b.pop == INT32_MAX) continue;
+        const uint64_t key = best_key[i];
+        if (key == kNone) continue;
         if (n_out >= out_cap) return -1;   // cannot happen: cap >= n_sg
+        const int64_t at =
+            ref_ptr[0] + (int64_t)((key >> 1) & ((1ULL << kPosBits) - 1));
+        const int64_t c =
+            (int64_t)(std::upper_bound(ref_ptr, ref_ptr + n_contigs + 1, at) -
+                      ref_ptr) - 1;
         out_sg[n_out] = (int32_t)i;
-        out_contig[n_out] = b.cl;
-        out_off[n_out] = b.off;
-        out_dir[n_out] = b.dir;
-        out_pop[n_out] = b.pop;
+        out_contig[n_out] = (int32_t)c;
+        out_off[n_out] = (int32_t)(at - ref_ptr[c]);
+        out_dir[n_out] = (int8_t)(key & 1);
+        out_pop[n_out] = (int32_t)(key >> (kPosBits + 1));
         ++n_out;
     }
     if (probe_debug())

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import configs_torch
 from minicom_tpu_torch import CompressorConfig, compressor
 from minicom_tpu_torch.entropy import backend, device_ctx_rans, device_rans
 from minicom_tpu_torch.ops import cuda, rans, step
@@ -132,6 +133,22 @@ def test_sketch_reads_lanes_match_plain(dev, lanes, L):
         _entries_equal_plain(c, rids, k)
 
 
+@pytest.mark.parametrize("L,ks", [(50, (17, 23, 25, 31)),
+                                  (75, (17, 23, 25, 31)),
+                                  (100, (23, 25)), (101, (23, 25)),
+                                  (150, (23, 25)), (256, (23, 25))])
+def test_sketch_reads_at_the_configurations_shapes(dev, L, ks):
+    """The read lengths and k of CONFIGS_torch.json's entries that the
+    cells never give the kernel, at 1, 2 and 4 lanes a read."""
+    rng = np.random.default_rng(L * 7)
+    codes = _reads_store(rng, 3001, L)
+    c = torch.from_numpy(codes).to(dev)
+    for m in _reads_for_lanes(dev).values():
+        rids = rng.integers(0, 3001, m)
+        for k in ks:
+            _entries_equal_plain(c, rids, k)
+
+
 @pytest.mark.parametrize("Lmax,k,w", [(128, 31, 19), (512, 17, 11),
                                       (2048, 4, 3), (8192, 31, 19),
                                       (512, 31, 300)])
@@ -182,6 +199,34 @@ def test_sketch_windowed_flat_kernel_matches_plain(dev, k, w):
     got = sketch_windowed_flat(t.to(dev), starts, lens, mb, k, w)
     assert cuda.launches["mtc_sketch_windowed"] == n0 + 1
     assert (got[2] >= mb).any()
+    for g, x in zip(got, want):
+        np.testing.assert_array_equal(g, x)
+
+
+@pytest.mark.parametrize("k,w", [(17, 3), (17, 20), (23, 5), (25, 15),
+                                 (25, 20), (31, 97)])
+def test_sketch_windowed_flat_at_the_configurations_windows(dev, k, w):
+    """The (k, w) of CONFIGS_torch.json's entries, on rows of every rung up
+    to 32,768 bases (a 256 bp run's contigs reach ~7,400 at 200,000
+    reads), each with the merge stage's slot count (``_batch_m``, cap 128):
+    one launch, equal to the batched plain version."""
+    from minicom_tpu_torch.pipeline.merge import _batch_m, _lmax_bucket
+    rng = np.random.default_rng(k * 100 + w)
+    lens = np.sort(np.r_[rng.integers(0, 129, 600),
+                         rng.integers(129, 513, 300),
+                         rng.integers(513, 2049, 100),
+                         rng.integers(2049, 8193, 30),
+                         rng.integers(8193, 32769, 6), [0, 1, k - 1]])
+    ref = rng.integers(0, 4, int(lens.sum()) + 1000, dtype=np.uint8)
+    ref[:600] = np.resize(np.array([0, 3], np.uint8), 600)
+    starts = np.r_[0, np.cumsum(lens)[:-1]]
+    mb = np.array([_batch_m(_lmax_bucket(max(int(n), k + 1)), k, w, 128)
+                   for n in lens])
+    t = torch.from_numpy(ref)
+    want = sketch_windowed_flat(t, starts, lens, mb, k, w)
+    n0 = cuda.launches["mtc_sketch_windowed"]
+    got = sketch_windowed_flat(t.to(dev), starts, lens, mb, k, w)
+    assert cuda.launches["mtc_sketch_windowed"] == n0 + 1
     for g, x in zip(got, want):
         np.testing.assert_array_equal(g, x)
 
@@ -316,6 +361,18 @@ def test_consensus_members_shuffled_across_segments(dev):
     assert cuda.launches["mtc_consensus_vote"] == n0 + 1
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("L", [50, 75, 101, 256])
+def test_consensus_at_the_configurations_read_lengths(dev, L):
+    """The read lengths of CONFIGS_torch.json's entries, whose rows are
+    not a multiple of 4 bytes long (but 256, whose clusters are longer):
+    round-like clusters and a few tiles wide, every want pair."""
+    rng = np.random.default_rng(L)
+    sizes = np.r_[rng.integers(2, 30, 1500), rng.integers(10, 80, 20)]
+    spread = np.r_[rng.integers(0, L, 1500), rng.integers(1000, 3000, 20)]
+    _flat_equal(dev, *_flat_case(rng, sizes, spread, L=L),
+                ((True, True), (True, False), (False, True)))
 
 
 def test_consensus_one_launch_per_call_in_compress(dev, tmp_path):
@@ -889,6 +946,26 @@ def _cuda_equals_cpu(dev, tmp_path, cfg, fq, fq2=None):
     compressor.compress(fq, b, cfg, reads_path2=fq2, device="cpu")
     assert open(a, "rb").read() == open(b, "rb").read()
     return a, {k: v - n0.get(k, 0) for k, v in n1.items()}
+
+
+@pytest.mark.parametrize("name", [e["name"]
+                                  for e in configs_torch.load_configs()])
+def test_configuration_archive_on_cuda_equals_cpu(dev, tmp_path, name):
+    """Each entry of CONFIGS_torch.json at 20,000 reads: the card's archive
+    is the CPU's, the read minimizer, the contig sketch and the vote each
+    launch, and the card's decompress gives the reads back."""
+    entry = configs_torch.config_entry(name)
+    fq = configs_torch.make_input(entry, str(tmp_path), 20_000)
+    arc, launched = _cuda_equals_cpu(
+        dev, tmp_path, CompressorConfig(**entry["settings"]), fq)
+    for k in ("mtc_sketch_reads", "mtc_sketch_windowed",
+              "mtc_consensus_vote"):
+        assert launched.get(k, 0) > 0, k
+    out = str(tmp_path / "d.reads")
+    compressor.decompress(arc, out, device=dev)
+    plain = configs_torch.input_name(dict(entry, gzip=False), 20_000)
+    want = open(tmp_path / plain, "rb").read().splitlines()[1::4]
+    assert sorted(open(out, "rb").read().splitlines()) == sorted(want)
 
 
 def test_order_roundtrip_on_cuda(dev, tmp_path):

@@ -452,3 +452,65 @@ def test_port_builds_and_runs_without_the_jax_package(tmp_path):
     compressor.compress(str(fq), str(tmp_path / "repo.mtc"), device="cpu")
     assert ((tmp_path / "alone.mtc").read_bytes()
             == (tmp_path / "repo.mtc").read_bytes())
+
+
+# Runs the realign probe with the OpenMP team set to 1, then 8, threads,
+# in a process of its own (the team size is process-wide).
+_THREADS_CHILD = """
+import sys
+import numpy as np
+from minicom_tpu_torch import native
+a = dict(np.load(sys.argv[1]))
+out = {}
+for t in (1, 8):
+    native.set_threads(t)
+    for j, thr in enumerate(a["thrs"]):
+        got = native.realign_probe(a["ref"], a["ptr"], a["sg"], a["starts"],
+                                   int(a["seg"]), int(thr), int(a["search"]),
+                                   int(thr) <= 24)
+        for i, x in enumerate(got):
+            out[f"t{t}_{j}_{i}"] = x
+np.savez(sys.argv[2], **out)
+"""
+
+
+def test_realign_winners_do_not_depend_on_the_thread_count(tmp_path):
+    """The realign probe's winners at 1 and at 8 OpenMP threads are the
+    same, and the JAX package's, on the shape of CONFIGS_torch.json's
+    L150-k25-m30-w20-e18-S5 (8 dictionaries of 17 bases, the ladder's
+    thresholds 18 to 73 in steps of 5): 1,500 reads from a 6 kb genome
+    with repeats, against 120 contigs cut from it that overlap, so most
+    reads have tied placements in several contigs that different threads
+    scan."""
+    cfg = CompressorConfig(k=25, first_minimizers=30, contig_window=20,
+                           diff_threshold=18, thr_step=5).resolve(150)
+    assert (cfg.num_dicts, cfg.dict_seg_len, cfg.max_threshold) == (8, 17, 75)
+    rng = np.random.default_rng(150)
+    genome = rng.integers(0, 4, 6_000, dtype=np.uint8)
+    genome[3_000:4_000] = genome[1_000:2_000]       # a repeat
+    lens = rng.integers(150, 900, 120)
+    at = rng.integers(0, len(genome) - lens)
+    ref = np.concatenate([genome[a:a + n] for a, n in zip(at, lens)])
+    ptr = np.r_[0, np.cumsum(lens)].astype(np.int64)
+    pick = rng.integers(0, len(genome) - 150, 1_500)
+    sg = _substituted(_CODE[_mutated(rng, _ACGT[
+        genome[pick[:, None] + np.arange(150)]], 0.03)])
+    flip = rng.random(len(sg)) < 0.5
+    sg[flip] = 3 - sg[flip][:, ::-1]
+    starts = np.array([s for s, _ in cfg.dict_ranges()], np.int32)
+    thrs = np.arange(cfg.diff_threshold, cfg.max_threshold, cfg.thr_step)
+    np.savez(tmp_path / "in.npz", ref=ref, ptr=ptr, sg=sg, starts=starts,
+             seg=cfg.dict_seg_len, search=cfg.max_search, thrs=thrs)
+    r = subprocess.run([sys.executable, "-c", _THREADS_CHILD,
+                        str(tmp_path / "in.npz"), str(tmp_path / "out.npz")],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    got = np.load(tmp_path / "out.npz")
+    for j, thr in enumerate(thrs):
+        want = J.realign_probe(ref, ptr, sg, starts, cfg.dict_seg_len,
+                               int(thr), cfg.max_search, thr <= 24)
+        one = tuple(got[f"t1_{j}_{i}"] for i in range(5))
+        eight = tuple(got[f"t8_{j}_{i}"] for i in range(5))
+        _same(one, eight, f"thr {thr}: 1 and 8 threads")
+        _same(one, want, f"thr {thr}: the JAX package's")
+        assert len(one[0]) > 0.8 * len(sg)

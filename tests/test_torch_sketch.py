@@ -212,7 +212,11 @@ def test_strip_split_and_combine_equals_plain(rng, g, L, k):
 
 
 @pytest.mark.parametrize("Lmax", [128, 512, 2048])
-@pytest.mark.parametrize("k,w", [(31, 19), (17, 11), (4, 3)])
+# (k, w) of the main path's cells, then of CONFIGS_torch.json's entries
+# (the reference's documented command lines and the 256 bp cap's w = 97)
+@pytest.mark.parametrize("k,w", [(31, 19), (17, 11), (4, 3), (17, 3),
+                                 (17, 20), (23, 5), (25, 15), (25, 20),
+                                 (31, 97)])
 def test_sketch_windowed_matches_reference(rng, Lmax, k, w):
     rows = 16
     ref = rng.integers(0, 4, 4 * Lmax + 1024, dtype=np.uint8)
