@@ -2,6 +2,11 @@
 """Drive minicom_tpu_torch's main path once on one CUDA GPU and check it.
 
     python3 chip_smoke.py            # from the repository root, one GPU
+    python3 chip_smoke.py --cards    # phase 13 alone, on 2-4 GPUs of a host
+
+With ``--cards`` it runs phase 13 and only what it needs: phase 0, phase 2,
+phase 3's cuda archives (not their cpu twins) and phase 8's one-card
+digests; its last line is the same ``{"ok": true, ...}`` object.
 
 Phases (any failure ends the run with a traceback and a non-zero exit):
   0. device: a CUDA device must be present; prints the card's name and power
@@ -90,8 +95,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      contig sketch and the re-vote) and not the read minimizer, and writes
      the same archive.
   6. two ranks: this script starts workers of itself (``--dist-worker``)
-     that join one gloo group through a file store and share cuda:0, each
-     with half the host's cores. First one rank alone compresses and
+     that join one gloo group through a file store, each with half the
+     host's cores; they see one card, so ``distributed.place`` puts both on
+     cuda:0, and each compress names cuda:0, shared, in its summary. First
+     one rank alone compresses and
      decompresses phase 2's 5M file (the single-process walls and peak RSS
      of a fresh process); then two ranks do: rank 0's archive must equal
      phase 2's and its decode phase 2's decoded file, byte for byte, rank 1
@@ -119,7 +126,8 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      bounds. ``step_times.py`` times the step's kernels alone.
   8. sharded cluster step: ``parallel/mesh.py::sharded_cluster_step`` in
      two workers of this script (``--dist-worker``) that join one gloo
-     group and share cuda:0, each with half the rows: (i) phase 7's first
+     group and share cuda:0 (they see one card), each with half the rows:
+     (i) phase 7's first
      2^20 reads, span_cols N 2L; (ii) 4,096 rows of phase 2's store, 2,049
      of them the one whose key sorts last, at k = 30 (one segment across
      both ranks; rank 1 owns none); (iii) all 5,000,000 reads, span_cols
@@ -129,9 +137,10 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      launch kernel (c), the keys and segments kernels once each, and the
      vote once where it owns a segment with columns below span_cols (rank
      1 of (ii) owns none and launches no vote). Prints per rank the step's
-     wall, device ms per piece (CUDA events), seconds and bytes sent and
-     received per collective, host-device copies, what it owned, its
-     launches, peak device memory and peak RSS.
+     wall, device ms per piece (CUDA events), the exchanges' backend,
+     seconds and bytes sent, received and moved through the host per
+     collective, host-device copies, what it owned, its launches, peak
+     device memory and peak RSS.
   9. bench: ``bench_torch.run_cell`` on every cell of ``BENCHMARK.json``
      cut to 100,000 reads and one repeat (the default profile at seed 7 is
      phase 3's input): each must be correct (roundtrip exact, archives of
@@ -180,6 +189,21 @@ Phases (any failure ends the run with a traceback and a non-zero exit):
      Prints one line a configuration (resolved k, w and dictionaries,
      archive bytes and bits a base, walls, stage walls, launches and
      device ms of each kernel) and the phase's wall.
+  13. a card a rank, where the machine has 2 or more cards (up to 4, P;
+     on one card it prints on a line that it did not run, and why): the
+     workers see P cards, so rank r runs on cuda:r and the group carries
+     CUDA tensors over NCCL. (i) Phase 2's 5M file compressed and
+     decompressed in P ranks: rank 0's archive must equal phase 2's (the
+     default cell's pin) and its decode phase 2's decoded file, byte for
+     byte; each rank must launch the read minimizer, the vote and the
+     contig sketch, its summaries must name cuda:r, not shared, and it
+     must hold device memory on cuda:r and on no other card. Then the 100k
+     set with codec=device, ORDER and PE in P ranks: each archive phase
+     3's, each decode exact. (ii) phase 8's three cases in P ranks, one a
+     card: the digests phase 8's one-card step's, every exchange over NCCL
+     with no byte through the host. Prints every card's name and power
+     limit, per rank the walls and stages, and the step's wall, device ms
+     per piece and seconds and bytes per collective.
 Three lines end the output: the script's whole wall; a JSON object with
 each kernel's numbers
 (bytes_bound_ms: the bytes its inputs and outputs hold over 3.35 TB/s;
@@ -913,10 +937,13 @@ class _LaunchTimer:
         self._launch = cuda.launch
 
         def timed_launch(name, *args):
+            # on the stream the launch takes: its tensors' card's
+            stream = torch.cuda.current_stream(next(
+                a.device for a in args if isinstance(a, torch.Tensor)))
             t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
+            t0.record(stream)
             self._launch(name, *args)
-            t1.record()
+            t1.record(stream)
             self.events.append((name, t0, t1))
 
         cuda.launches.clear()
@@ -928,9 +955,9 @@ class _LaunchTimer:
         self.launched = dict(cuda.launches)
 
     def seconds(self) -> dict:
-        torch.cuda.synchronize()
         out = {}
         for name, e0, e1 in self.events:
+            e1.synchronize()
             out[name] = out.get(name, 0.0) + e0.elapsed_time(e1) / 1e3
         return out
 
@@ -1363,10 +1390,11 @@ def _same_archive(a, b, what):
             raise AssertionError(f"{what}: archives differ")
 
 
-def phase3_same_bytes(dev, fq, tmp):
+def phase3_same_bytes(dev, fq, tmp, twins=True):
     """Returns the mate files and the cuda archive of each case, by tag.
     The mates are the PE cell's input cut to 100,000 reads
-    (``bench_torch.make_inputs``: fragment pairs at the benchmark's seed)."""
+    (``bench_torch.make_inputs``: fragment pairs at the benchmark's seed).
+    Without ``twins`` (``--cards``) only the cuda archives are made."""
     seed = bench_torch.load_cell("pe-5M-100bp-default")[2]
     m1, m2 = bench_torch.make_inputs(os.path.join(tmp, "same_pe.fastq"),
                                      N_SAME_BYTES, seed, "default", True)
@@ -1381,10 +1409,13 @@ def phase3_same_bytes(dev, fq, tmp):
                                                                 "cpu"))
         src = fq if fq2 is None else m1
         compressor.compress(src, a, cfg, reads_path2=fq2, device=dev)
-        compressor.compress(src, b, cfg, reads_path2=fq2, device="cpu")
-        _same_archive(a, b, f"{tag}: cuda and cpu")
         cuda_archives[tag] = a
         n = (f"{N_SAME_BYTES // 2} pairs" if fq2 else f"{N_SAME_BYTES} reads")
+        if not twins:
+            print(f"[3] {n}, {tag}: cuda archive {os.path.getsize(a)} B")
+            continue
+        compressor.compress(src, b, cfg, reads_path2=fq2, device="cpu")
+        _same_archive(a, b, f"{tag}: cuda and cpu")
         print(f"[3] {n}, {tag}: cuda and cpu archives identical "
               f"({os.path.getsize(a)} B)")
     return m1, m2, cuda_archives
@@ -1619,11 +1650,23 @@ def _digests(outs) -> list[str]:
     return [hashlib.sha256(x.cpu().numpy()).hexdigest() for x in outs]
 
 
+def _card_peaks() -> dict:
+    """The peak bytes PyTorch's allocator held on each card this process
+    sees, since the last ``_reset_card_peaks``."""
+    return {f"cuda:{i}": torch.cuda.max_memory_allocated(i)
+            for i in range(torch.cuda.device_count())}
+
+
+def _reset_card_peaks() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.reset_peak_memory_stats(i)
+
+
 def _sharded_step(rank, world, job, dev):
-    """Phase 8's job on one rank: this rank's share of the first "n" rows
-    of the .npy "rows", as ``mesh.sharded_cluster_step`` takes them;
-    returns its numbers and the digests of consensus and coverage, and
-    writes its slices of diffs, seg_id and order to "slices"."""
+    """Phases 8 and 13's job on one rank: this rank's share of the first
+    "n" rows of the .npy "rows", as ``mesh.sharded_cluster_step`` takes
+    them; returns its numbers and the digests of consensus and coverage,
+    and writes its slices of diffs, seg_id and order to "slices"."""
     rows = np.load(job["rows"], mmap_mode="r")
     b = [job["n"] * r // world for r in range(world + 1)]
     local = torch.from_numpy(np.ascontiguousarray(
@@ -1649,20 +1692,26 @@ def _sharded_step(rank, world, job, dev):
 
 
 def dist_worker(argv) -> int:
-    """One rank of phases 6 and 8: ``chip_smoke.py --dist-worker RANK WORLD
-    STORE JOBS``. Joins a gloo group through ``file://STORE`` and runs the
-    jobs of JOBS (a JSON list) on cuda:0: a job with "fq" compresses, one
-    with "arc" decompresses (after the compress when it has both), one with
-    "rows" runs the sharded cluster step (``_sharded_step``). Prints one
-    ``DIST {...}`` line per job: walls, stages, kernel launches, the
-    seconds and bytes spent in the package's all-gathers, and the peak RSS
-    of the process after each step."""
+    """One rank of phases 6, 8 and 13: ``chip_smoke.py --dist-worker RANK
+    WORLD STORE JOBS``. Joins a group through ``file://STORE`` as local
+    rank RANK, on the card ``distributed.place`` gives it among those the
+    process sees (CUDA_VISIBLE_DEVICES: one card in phases 6 and 8, which
+    the ranks share over gloo; a card a rank in phase 13, NCCL between
+    them), and runs the jobs of JOBS (a JSON list) on that card: a job with
+    "fq" compresses (device "cuda", the rank's card), one with "arc"
+    decompresses (after the compress when it has both), one with "rows"
+    runs the sharded cluster step (``_sharded_step``). Prints one ``DIST
+    {...}`` line per job: walls, stages, kernel launches, the seconds and
+    bytes spent in the package's all-gathers, the card each summary names,
+    the peak bytes the allocator held on each card it sees, and the peak
+    RSS of the process after each step."""
     import datetime
     from minicom_tpu_torch.parallel import distributed
     rank, world, store, spec = int(argv[0]), int(argv[1]), argv[2], argv[3]
     distributed.initialize(f"file://{store}", world_size=world, rank=rank,
+                           local_rank=rank,
                            timeout=datetime.timedelta(seconds=600))
-    dev = torch.device("cuda", 0)
+    dev = distributed.rank_device()
     start_rss = _RssPeak.now()   # imports and the group, before any job
     coll = {}
     gather = distributed.allgather_ragged_many
@@ -1696,7 +1745,9 @@ def dist_worker(argv) -> int:
     os.environ["MTC_WRITE_ALL_RANKS"] = "0"
     for job in jobs:
         res = {"rank": rank, "world": world, "tag": job["tag"],
-               "start_rss_B": start_rss}
+               "start_rss_B": start_rss, "card": str(dev),
+               "nccl": distributed.nccl()}
+        _reset_card_peaks()
         if job.get("fq"):
             cfg = CompressorConfig(threads=os.cpu_count() // world,
                                    **job["cfg"])
@@ -1706,14 +1757,16 @@ def dist_worker(argv) -> int:
                 t0 = time.perf_counter()
                 summary = compressor.compress(
                     job["fq"], fmt(job["out"]), cfg,
-                    reads_path2=job.get("fq2"), stats=st, device=dev)
+                    reads_path2=job.get("fq2"), stats=st, device="cuda")
                 res["encode_s"] = time.perf_counter() - t0
             res.update(encode_stages=summary["timings_s"],
                        encode_launches=lt.launched,
                        encode_kernel_s=lt.seconds(), encode_coll=dict(coll),
                        encode_peak_rss_B=rss.peak,
                        encode_stage_rss_B=rss.by_stage,
-                       archive_bytes=summary["archive_bytes"])
+                       archive_bytes=summary["archive_bytes"],
+                       encode_device=[summary["device"],
+                                      summary["card_shared"]])
         if job.get("arc"):
             coll.clear()
             st = _NamedStages()
@@ -1721,27 +1774,33 @@ def dist_worker(argv) -> int:
                 t0 = time.perf_counter()
                 dsum = compressor.decompress(job["arc"], fmt(job["dec"]),
                                              fmt(job.get("dec2")), stats=st,
-                                             device=dev)
+                                             device="cuda")
                 res["decode_s"] = time.perf_counter() - t0
             res.update(decode_stages=dsum["timings_s"],
                        decode_launches=lt.launched, decode_coll=dict(coll),
                        decode_peak_rss_B=rss.peak,
-                       decode_stage_rss_B=rss.by_stage)
+                       decode_stage_rss_B=rss.by_stage,
+                       decode_device=[dsum["device"], dsum["card_shared"]])
         if job.get("rows"):
             res.update(_sharded_step(rank, world, job, dev))
+        res["cards_B"] = _card_peaks()
         print("DIST " + json.dumps(res), flush=True)
     distributed.shutdown()
     return 0
 
 
-def _run_dist(tmp, tag, world, jobs, timeout):
-    """Start ``world`` workers of this script on ``jobs``; a worker that
-    fails, or a group that outlives ``timeout`` seconds, kills the group
-    and fails the phase. Returns each job's results, one list per rank."""
+def _run_dist(tmp, tag, world, jobs, timeout, cards=1):
+    """Start ``world`` workers of this script on ``jobs``, seeing the first
+    ``cards`` cards of the machine (``distributed.place`` puts them there:
+    all on cuda:0 with one card, rank r on cuda:r with a card each); a
+    worker that fails, or a group that outlives ``timeout`` seconds, kills
+    the group and fails the phase. Returns each job's results, one list per
+    rank."""
     spec = os.path.join(tmp, f"{tag}.json")
     with open(spec, "w") as f:
         json.dump(jobs, f)
-    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+               CUDA_VISIBLE_DEVICES=",".join(_card_ids()[:cards]))
     logs = [os.path.join(tmp, f"{tag}.{r}.log") for r in range(world)]
     procs = []
     for r in range(world):
@@ -1776,14 +1835,25 @@ def _run_dist(tmp, tag, world, jobs, timeout):
              if line.startswith("DIST ")] for out in outs]
 
 
-def _print_dist(res):
+def _card_ids() -> list[str]:
+    """The ids of the cards this process sees, as CUDA_VISIBLE_DEVICES
+    names them."""
+    seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return (seen.split(",") if seen
+            else [str(i) for i in range(torch.cuda.device_count())])
+
+
+def _print_dist(res, phase=6):
     """The per-rank numbers of one job."""
-    head = f"[6] {res['tag']} rank {res['rank']}/{res['world']}"
+    head = f"[{phase}] {res['tag']} rank {res['rank']}/{res['world']}"
+    print(f"{head} on {res['card']} (NCCL between cards: {res['nccl']}); "
+          "peak allocated B by card: " + json.dumps(res["cards_B"]))
     for step, wall in (("encode", "compress"), ("decode", "decompress")):
         if f"{step}_s" not in res:
             continue
         c = res[f"{step}_coll"]
-        print(f"{head} {wall}: {res[f'{step}_s']:.2f} s; all-gathers "
+        print(f"{head} {wall} on {res[f'{step}_device']} [device, shared]: "
+              f"{res[f'{step}_s']:.2f} s; all-gathers "
               f"{c.get('calls', 0)} calls {c.get('s', 0.0):.3f} s, sent "
               f"{c.get('sent_B', 0)} B, received {c.get('recv_B', 0)} B; "
               f"peak RSS {res[f'{step}_peak_rss_B']} B ({res['start_rss_B']}"
@@ -1802,39 +1872,89 @@ def _print_dist(res):
               + json.dumps(res["encode_kernel_s"]))
 
 
+def _group_job(tmp, name, tag, cfg=None, src=None, src2=None,
+               decode=True):
+    """A worker job under ``tmp/<name>_<tag>``: compress ``src`` (and its
+    mate ``src2``) with the settings ``cfg`` where given, then decompress
+    rank 0's archive where ``decode``."""
+    base = os.path.join(tmp, f"{name}_{tag}")
+    j = {"tag": tag, "cfg": cfg or {}}
+    if src:
+        j.update(fq=src, fq2=src2, out=base + "_{rank}.mtc")
+    if decode:
+        j.update(arc=base + "_0.mtc", dec=base + "_{rank}.reads",
+                 dec2=base + "_{rank}.reads2" if src2 else None)
+    return j
+
+
+def _small_jobs(tmp, name, fq_small, m1, m2):
+    """The 100k set with codec=device, ORDER and PE, compressed and
+    decoded."""
+    return [_group_job(tmp, name, "device", {"codec": "device"}, fq_small),
+            _group_job(tmp, name, "order", {"order": True}, fq_small),
+            _group_job(tmp, name, "pe", {}, m1, m2)]
+
+
+def _small_checks(phase, tmp, name, small, fq_small, m1, m2, same):
+    """``_small_jobs``' results in a group: each archive phase 3's cuda
+    archive, the rANS encode and decode launched on some rank, each decode
+    exact (line for line in ORDER, the pairs in PE)."""
+    world = len(small)
+    for i, (tag, key) in enumerate((("device", "codec=device"),
+                                    ("order", "order, codec=auto"),
+                                    ("pe", "PE, codec=auto"))):
+        for r in range(world):
+            _print_dist(small[r][i], phase)
+        _same_archive(os.path.join(tmp, f"{name}_{tag}_0.mtc"), same[key],
+                      f"100k {key}: {world} ranks and one")
+        print(f"[{phase}] 100k {key}, {world} ranks: archive equals the "
+              "one-process cuda archive")
+    for stage, kernel in (("encode_launches", "mtc_rans_encode"),
+                          ("decode_launches", "mtc_rans_decode")):
+        if sum(small[r][0][stage].get(kernel, 0) for r in range(world)) < 1:
+            raise AssertionError(f"codec=device: no rank launched {kernel}")
+    _check_roundtrip(os.path.join(tmp, f"{name}_device_0.reads"),
+                     sorted_rows(input_rows(fq_small)), N_SAME_BYTES)
+    want = input_rows(fq_small)
+    if not np.array_equal(decoded_rows(os.path.join(
+            tmp, f"{name}_order_0.reads"), len(want), 100), want):
+        raise AssertionError(f"{world}-rank ORDER decode is not line for "
+                             "line")
+    w1, w2 = input_rows(m1), input_rows(m2)
+    got = np.concatenate([
+        decoded_rows(os.path.join(tmp, f"{name}_pe_0.reads"), len(w1), 100),
+        decoded_rows(os.path.join(tmp, f"{name}_pe_0.reads2"), len(w2),
+                     100)], axis=1)
+    if not np.array_equal(sorted_rows(got),
+                          sorted_rows(np.concatenate([w1, w2], axis=1))):
+        raise AssertionError(f"{world}-rank PE decode does not keep the "
+                             "pairs")
+
+
 def phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same):
-    """Two ranks of one gloo group on cuda:0: phase 2's 5M file (after one
-    rank alone, for the walls and peak RSS of a fresh single process), each
-    of compress and decompress in fresh processes; then the 100k set with
-    codec=device, ORDER and PE."""
+    """Two ranks of one gloo group on cuda:0 (the group sees one card):
+    phase 2's 5M file (after one rank alone, for the walls and peak RSS of
+    a fresh single process), each of compress and decompress in fresh
+    processes; then the 100k set with codec=device, ORDER and PE."""
     t0 = time.perf_counter()
-
-    def job(tag, world, cfg=None, src=None, src2=None, decode=True):
-        base = os.path.join(tmp, f"d{world}_{tag}")
-        j = {"tag": tag, "cfg": cfg or {}}
-        if src:
-            j.update(fq=src, fq2=src2, out=base + "_{rank}.mtc")
-        if decode:
-            j.update(arc=base + "_0.mtc", dec=base + "_{rank}.reads",
-                     dec2=base + "_{rank}.reads2" if src2 else None)
-        return j
-
     walls = {}
     for world in (1, 2):
         t = time.perf_counter()
-        enc = _run_dist(tmp, f"c{world}", world,
-                        [job("5M", world, src=fq, decode=False)], 400)
+        enc = _run_dist(tmp, f"c{world}", world, [_group_job(
+            tmp, f"d{world}", "5M", src=fq, decode=False)], 400)
         walls[f"{world}c"] = time.perf_counter() - t
         t = time.perf_counter()
-        dec = _run_dist(tmp, f"d{world}", world, [job("5M", world)], 200)
+        dec = _run_dist(tmp, f"d{world}", world,
+                        [_group_job(tmp, f"d{world}", "5M")], 200)
         walls[f"{world}d"] = time.perf_counter() - t
         for r in range(world):
             _print_dist(enc[r][0])
             _print_dist(dec[r][0])
-            _require(enc[r][0]["encode_launches"],
-                     ("mtc_sketch_reads", "mtc_consensus_vote",
-                      "mtc_sketch_windowed"),
+            _require(enc[r][0]["encode_launches"], MAIN_PATH,
                      f"5M compress on rank {r} of {world}")
+            if enc[r][0]["encode_device"] != ["cuda:0", world > 1]:
+                raise AssertionError(f"rank {r} of {world} compressed on "
+                                     f"{enc[r][0]['encode_device']}")
         _same_archive(os.path.join(tmp, f"d{world}_5M_0.mtc"), arc,
                       f"5M: {world} rank(s) and phase 2")
         if not filecmp.cmp(os.path.join(tmp, f"d{world}_5M_0.reads"),
@@ -1849,37 +1969,9 @@ def phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same):
           "byte, rank 1 wrote neither; group walls s (worker start "
           "included): " + json.dumps(walls))
 
-    small = _run_dist(tmp, "small", 2, [
-        job("device", 2, {"codec": "device"}, fq_small),
-        job("order", 2, {"order": True}, fq_small),
-        job("pe", 2, {}, m1, m2)], 300)
-    for i, (tag, key) in enumerate((("device", "codec=device"),
-                                    ("order", "order, codec=auto"),
-                                    ("pe", "PE, codec=auto"))):
-        for r in range(2):
-            _print_dist(small[r][i])
-        _same_archive(os.path.join(tmp, f"d2_{tag}_0.mtc"), same[key],
-                      f"100k {key}: 2 ranks and one")
-        print(f"[6] 100k {key}, 2 ranks: archive equals the one-process cuda "
-              "archive")
-    for stage, kernel in (("encode_launches", "mtc_rans_encode"),
-                          ("decode_launches", "mtc_rans_decode")):
-        if sum(small[r][0][stage].get(kernel, 0) for r in range(2)) < 1:
-            raise AssertionError(f"codec=device: no rank launched {kernel}")
-    _check_roundtrip(os.path.join(tmp, "d2_device_0.reads"),
-                     sorted_rows(input_rows(fq_small)), N_SAME_BYTES)
-    want = input_rows(fq_small)
-    if not np.array_equal(decoded_rows(os.path.join(
-            tmp, "d2_order_0.reads"), len(want), 100), want):
-        raise AssertionError("2-rank ORDER decode is not line for line")
-    w1, w2 = input_rows(m1), input_rows(m2)
-    got = np.concatenate([
-        decoded_rows(os.path.join(tmp, "d2_pe_0.reads"), len(w1), 100),
-        decoded_rows(os.path.join(tmp, "d2_pe_0.reads2"), len(w2), 100)],
-        axis=1)
-    if not np.array_equal(sorted_rows(got),
-                          sorted_rows(np.concatenate([w1, w2], axis=1))):
-        raise AssertionError("2-rank PE decode does not keep the pairs")
+    small = _run_dist(tmp, "small", 2, _small_jobs(tmp, "d2", fq_small, m1,
+                                                   m2), 300)
+    _small_checks(6, tmp, "d2", small, fq_small, m1, m2, same)
     print(f"[6] 100k, 2 ranks: device, ORDER and PE decodes exact; phase 6 "
           f"took {time.perf_counter() - t0:.1f} s")
 
@@ -1990,6 +2082,14 @@ def _vote_ms(c, seg, span):
                                          step.tile_slots(L), span, *outs))
 
 
+def _step_store(fq) -> np.ndarray:
+    """The read store of ``fq`` as the pipeline uploads it: its codes, N
+    substituted by classify."""
+    codes = fastq.read_fastq_codes(fq)
+    return classify.classify(codes, CompressorConfig().resolve(
+        codes.shape[1])).codes_sub
+
+
 def phase7_cluster_step(dev, fq, report):
     """The fused cluster step on the phase-2 read store (N substituted by
     classify), k = 31: exact against the plain version on its first 2^20
@@ -2002,10 +2102,7 @@ def phase7_cluster_step(dev, fq, report):
     replays). Returns the 5M call's launches of the three step kernels and
     the read store."""
     t_start = time.perf_counter()
-    codes = fastq.read_fastq_codes(fq)
-    store = classify.classify(codes, CompressorConfig().resolve(
-        codes.shape[1])).codes_sub
-    del codes
+    store = _step_store(fq)
     c_all = torch.from_numpy(store).to(dev)
     N, L = c_all.shape
     k = 31
@@ -2167,16 +2264,18 @@ def _rank_bound(N, L, k, nseg, owned) -> dict:
             **{name: b["bound_ms"] for name, b in pieces.items()}}
 
 
-def _print_sharded(tag, r, got, bound):
+def _print_sharded(phase, tag, r, got, bound):
     st = got["stats"]
-    coll = {k: [round(v["s"], 4), v["sent_B"], v["recv_B"]]
+    coll = {k: [round(v["s"], 4), v["sent_B"], v["recv_B"], v["host_B"]]
             for k, v in st["collectives"].items()}
-    print(f"[8] {tag} rank {r}/2 ({got['rows']} rows): step "
+    print(f"[{phase}] {tag} rank {r}/{got['world']} on {got['card']} "
+          f"({got['rows']} rows; exchanges over {st['backend']}): step "
           f"{got['step_s']:.3f} s (wall in the step {st['wall_s']:.3f}); "
           f"device ms {json.dumps(st['device_ms'])}; collectives [s, sent "
-          f"B, received B] {json.dumps(coll)}; host-device copies "
-          f"{json.dumps(st['copies'])}; owned {json.dumps(st['owned'])}; "
-          f"launches {json.dumps(got['launched'])}; peak device memory "
+          f"B, received B, B through the host] {json.dumps(coll)}; "
+          f"host-device copies {json.dumps(st['copies'])}; owned "
+          f"{json.dumps(st['owned'])}; launches "
+          f"{json.dumps(got['launched'])}; peak device memory "
           f"{got['peak_device_B']} B ({got['device_over_rows_B']} B over "
           f"the rows); peak RSS {got['peak_rss_B']} B ({got['start_rss_B']} "
           f"B at the worker's start); device ms in all "
@@ -2184,17 +2283,17 @@ def _print_sharded(tag, r, got, bound):
           f"{json.dumps(bound)}")
 
 
-def phase8_sharded_step(dev, tmp, store):
-    """The sharded cluster step (``parallel/mesh.py``) in two ranks of one
-    gloo group on cuda:0, each with half the rows: (i) phase 7's first 2^20
-    reads, span_cols N 2L; (ii) 4,096 rows, 2,049 of them one read, at k =
-    30 (one segment across both ranks, none owned by rank 1); (iii) all
-    5,000,000 reads, span_cols 10^9. The rank-order concatenation of the
-    ranks' outputs (consensus and coverage whole on each) must equal the
-    one-card step's, by SHA-256 digest; each rank must launch kernel (c),
-    the keys and segments kernels once each, and the vote once where it
-    owns a segment with columns below span_cols, else not at all."""
-    t_start = time.perf_counter()
+DEEP_ROWS, DEEP_MEMBERS = 4096, 2049   # _deep_rows: its last segment
+
+
+def _step_refs(dev, tmp, store):
+    """Phases 8 and 13's cases of the sharded step on the phase-2 read
+    store, saved where the workers load them: (i) its first 2^20 reads,
+    span_cols N 2L; (ii) ``_deep_rows`` at k = 30; (iii) all its reads,
+    span_cols 10^9; each with the SHA-256 digests of the one-card
+    ``cluster_step``'s five outputs on the same rows. Returns (cases, the
+    digests, seconds)."""
+    t0 = time.perf_counter()
     N, L = store.shape
     paths = {"store": os.path.join(tmp, "step_store.npy"),
              "deep": os.path.join(tmp, "step_deep.npy")}
@@ -2204,8 +2303,8 @@ def phase8_sharded_step(dev, tmp, store):
     n = min(STEP_SEG_READS, N)
     cases = [(f"(i) {n} x {L}, k=31, span {n * 2 * L}", "store", n, 31,
               n * 2 * L),
-             (f"(ii) 4096 x {L}, 2049 one read, k=30", "deep", 4096, 30,
-              4096 * 2 * L),
+             (f"(ii) {DEEP_ROWS} x {L}, {DEEP_MEMBERS} one read, k=30",
+              "deep", DEEP_ROWS, 30, DEEP_ROWS * 2 * L),
              (f"(iii) {N} x {L}, k=31, span {MESH_SPAN}", "store", N, 31,
               MESH_SPAN)]
     want = []
@@ -2214,18 +2313,34 @@ def phase8_sharded_step(dev, tmp, store):
         want.append(_digests(step.cluster_step(c, k, span)))
         del c
     torch.cuda.empty_cache()
-    t_ref = time.perf_counter() - t_start
-    slices = os.path.join(tmp, "step{case}_{{rank}}_{{i}}.bin")
-    res = _run_dist(tmp, "step2", 2, [
-        {"tag": tag, "rows": paths[rows], "n": m, "k": k, "span": span,
-         "slices": slices.format(case=j)}
-        for j, (tag, rows, m, k, span) in enumerate(cases)], 400)
-    for j, (tag, rows, m, k, span) in enumerate(cases):
-        nseg = sum(res[r][j]["stats"]["owned"]["segments"] for r in range(2))
-        for r in range(2):
+    return ([dict(tag=tag, rows=paths[rows], n=m, k=k, span=span, L=L)
+             for tag, rows, m, k, span in cases], want,
+            time.perf_counter() - t0)
+
+
+def _sharded_groups(phase, tmp, cases, want, world, cards, timeout):
+    """The cases of ``_step_refs`` in ``world`` ranks that see ``cards``
+    cards, each with its share of the rows. The rank-order concatenation of
+    the ranks' outputs (consensus and coverage whole on each) must equal
+    the one-card step's, by SHA-256 digest; each rank must launch kernel
+    (c), the keys and segments kernels once each, and the vote once where
+    it owns a segment with columns below span_cols, else not at all; a
+    rank whose rows all lie inside the deep case's last segment owns none,
+    and each rank votes in the store's cases. Returns each case's results,
+    one list per rank."""
+    slices = os.path.join(
+        tmp, f"step{phase}_{{case}}_{{{{rank}}}}_{{{{i}}}}.bin")
+    res = _run_dist(tmp, f"step{phase}", world, [
+        dict(c, slices=slices.format(case=j)) for j, c in enumerate(cases)],
+        timeout, cards)
+    for j, case in enumerate(cases):
+        tag, m, L = case["tag"], case["n"], case["L"]
+        nseg = sum(res[r][j]["stats"]["owned"]["segments"]
+                   for r in range(world))
+        for r in range(world):
             got = res[r][j]
-            _print_sharded(tag, r, got, _rank_bound(
-                m, L, k, nseg, got["stats"]["owned"]))
+            _print_sharded(phase, tag, r, got, _rank_bound(
+                m, L, case["k"], nseg, got["stats"]["owned"]))
             if got["digests"] != want[j][:2]:
                 raise AssertionError(f"{tag}: rank {r}'s consensus or "
                                      "coverage differs from one card's")
@@ -2237,25 +2352,143 @@ def phase8_sharded_step(dev, tmp, store):
             if got["launched"] != made:
                 raise AssertionError(f"{tag}: rank {r} launched "
                                      f"{got['launched']}, want {made}")
-        if rows == "deep" and res[1][j]["stats"]["owned"]["segments"]:
-            raise AssertionError(f"{tag}: rank 1 owns a segment")
-        if rows == "store" and not all(res[r][j]["stats"]["owned"]["voted"]
-                                       for r in range(2)):
+        first = [m * r // world for r in range(world)]
+        if case["rows"].endswith("step_deep.npy"):
+            inside = [first[r] > DEEP_ROWS - DEEP_MEMBERS
+                      for r in range(world)]
+            if [not res[r][j]["stats"]["owned"]["segments"]
+                    for r in range(world)] != inside:
+                raise AssertionError(f"{tag}: the ranks inside the last "
+                                     "segment are not those that own none")
+        elif not all(res[r][j]["stats"]["owned"]["voted"]
+                     for r in range(world)):
             raise AssertionError(f"{tag}: a rank voted nothing")
         for i, name in ((2, "diffs"), (3, "seg_id"), (4, "order")):
             h = hashlib.sha256()
-            for r in range(2):
+            for r in range(world):
                 with open(slices.format(case=j).format(rank=r, i=i),
                           "rb") as f:
                     h.update(f.read())
             if h.hexdigest() != want[j][i]:
                 raise AssertionError(f"{tag}: the ranks' {name} differ "
                                      "from one card's")
-        print(f"[8] {tag}: both ranks' consensus and coverage, and their "
-              "diffs, seg_id and order in rank order, equal the one-card "
-              "step's (SHA-256)")
+        print(f"[{phase}] {tag}: the {world} ranks' consensus and coverage, "
+              "and their diffs, seg_id and order in rank order, equal the "
+              "one-card step's (SHA-256)")
+    return res
+
+
+def phase8_sharded_step(dev, tmp, store):
+    """The sharded cluster step (``parallel/mesh.py``) in two ranks of one
+    gloo group on cuda:0, each with half the rows, on the cases of
+    ``_step_refs``, held by ``_sharded_groups``. Returns the cases and the
+    one-card digests, which phase 13 reuses."""
+    t_start = time.perf_counter()
+    cases, want, t_ref = _step_refs(dev, tmp, store)
+    _sharded_groups(8, tmp, cases, want, 2, 1, 400)
     print(f"[8] phase 8 took {time.perf_counter() - t_start:.1f} s (the "
           f"one-card references {t_ref:.1f} s)")
+    return cases, want
+
+
+def phase13_cards(tmp, fq, arc, fq_small, m1, m2, same, cases, want):
+    """A card a rank, on every card the machine has, up to 4 (P), where it
+    has 2 or more; otherwise it says on one line why it did not run. Each
+    rank's group joins with P cards in view, so ``distributed.place`` puts
+    rank r on cuda:r and the group carries CUDA tensors over NCCL. (i) The
+    pipeline: phase 2's 5M file compressed and decompressed by P ranks:
+    rank 0's archive must equal phase 2's (the default cell's pin) and its
+    decode phase 2's decoded file, byte for byte; each rank must launch the
+    read minimizer, the vote and the contig sketch, name cuda:r in its
+    summaries, and hold device memory on its own card and on no other.
+    Then the 100k set with codec=device, ORDER and PE: each archive must
+    equal phase 3's, each decode exact, every rank on its own card. (ii)
+    The sharded cluster step over NCCL on P cards, the cases of phase 8
+    (``_sharded_groups``), the digests phase 7's one-card step's: each
+    rank's exchanges must report NCCL and move no byte through the host.
+    Prints per rank the walls, the step's device ms per piece and the
+    seconds and bytes per collective."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"[13] phase 13 did not run: a card a rank needs 2 or more "
+              f"cards, this machine has {count}")
+        return
+    t0 = time.perf_counter()
+    world = min(4, count)
+    name = f"k{world}"
+    print(f"[13] {world} of {count} cards, rank r on cuda:r:\n{_smi(True)}")
+
+    def held(res, where, uses=True):
+        """Each rank on its own card, and nowhere else: its summaries name
+        it (a decompress of host codecs names the host), it allocated on
+        no other card, and on its own where the job ``uses`` the card."""
+        for r, got in enumerate(res):
+            card = f"cuda:{r}"
+            if got["card"] != card or not got["nccl"]:
+                raise AssertionError(f"{where}: rank {r} on {got['card']}, "
+                                     f"NCCL {got['nccl']}, want {card}")
+            named = {step: got[f"{step}_device"] for step in ("encode",
+                                                              "decode")
+                     if f"{step}_device" in got}
+            if (named.get("encode", [card, False]) != [card, False]
+                    or named.get("decode", [card, False]) not in (
+                        [card, False], ["cpu", False])):
+                raise AssertionError(f"{where}: rank {r}'s summaries name "
+                                     f"{named}")
+            mine = got["cards_B"].pop(card)
+            if any(got["cards_B"].values()) or (uses and not mine):
+                raise AssertionError(f"{where}: rank {r} allocated {mine} B "
+                                     f"on {card}, by other card "
+                                     f"{got['cards_B']}")
+            got["cards_B"][card] = mine
+
+    t = time.perf_counter()
+    enc = _run_dist(tmp, "cards_c", world, [_group_job(
+        tmp, name, "5M", src=fq, decode=False)], 600, world)
+    walls = {"compress": time.perf_counter() - t}
+    t = time.perf_counter()
+    dec = _run_dist(tmp, "cards_d", world, [_group_job(tmp, name, "5M")],
+                    300, world)
+    walls["decompress"] = time.perf_counter() - t
+    for r in range(world):
+        _print_dist(enc[r][0], 13)
+        _print_dist(dec[r][0], 13)
+        _require(enc[r][0]["encode_launches"], MAIN_PATH,
+                 f"5M compress on cuda:{r} of {world}")
+    held([x[0] for x in enc], "5M compress")
+    held([x[0] for x in dec], "5M decompress", uses=False)
+    base = os.path.join(tmp, f"{name}_5M")
+    _same_archive(base + "_0.mtc", arc, f"5M: {world} cards and phase 2")
+    if not filecmp.cmp(base + "_0.reads", os.path.join(tmp, "e2e.reads"),
+                       shallow=False):
+        raise AssertionError(f"5M: the {world}-card decode differs from "
+                             "phase 2's")
+    print(f"[13] (i) 5M on {world} cards: rank 0's archive equals phase 2's "
+          f"({os.path.getsize(arc)} B, the default cell's pin), its decode "
+          "phase 2's byte for byte; rank r ran on cuda:r and allocated on "
+          "no other card; group walls s (worker start included): "
+          + json.dumps(walls))
+    small = _run_dist(tmp, "cards_small", world,
+                      _small_jobs(tmp, name, fq_small, m1, m2), 400, world)
+    _small_checks(13, tmp, name, small, fq_small, m1, m2, same)
+    for i in range(3):
+        held([x[i] for x in small], "100k " + small[0][i]["tag"])
+    print(f"[13] (i) 100k codec=device, ORDER and PE on {world} cards: "
+          "archives equal phase 3's, decodes exact, rank r on cuda:r")
+
+    res = _sharded_groups(13, tmp, cases, want, world, world, 600)
+    for j, case in enumerate(cases):
+        for r in range(world):
+            st = res[r][j]["stats"]
+            moved = {c: v["host_B"] for c, v in st["collectives"].items()}
+            if st["backend"] != "nccl" or any(moved.values()):
+                raise AssertionError(
+                    f"{case['tag']}: rank {r}'s exchanges over "
+                    f"{st['backend']}, bytes through the host {moved}")
+        held([x[j] for x in res], case["tag"])
+    print(f"[13] (ii) the sharded step on {world} cards: every exchange "
+          f"over NCCL, no byte through the host; phase 13 took "
+          f"{time.perf_counter() - t0:.1f} s")
 
 
 # phase 3's cuda archive that a 100k cell of the default profile must write,
@@ -2363,11 +2596,13 @@ def phase9_bench(dev, tmp, same):
                    if k in r["stage_s"]}))
 
 
-def _smi() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.splitlines()[0]
+def _smi(every=False) -> str:
+    """The card's name and power limit, as nvidia-smi gives them (every
+    card's, one a line, with ``every``)."""
+    lines = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.splitlines()
+    return "\n".join(lines) if every else lines[0]
 
 
 def phase0_device():
@@ -2691,13 +2926,44 @@ def phase12_configs(dev, tmp, writer, report):
     print(f"[12] phase 12 took {time.perf_counter() - t_start:.1f} s")
 
 
+def _device_line() -> str:
+    return json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+
+
+def cards_main(t_start) -> int:
+    """``chip_smoke.py --cards``: phase 13 with only what it needs: the
+    build (phase 0), phase 2's file, archive and decode, phase 3's cuda
+    archives (their cpu twins left out) and phase 8's one-card digests."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp:
+        dev = phase0_device()
+        fq_small = os.path.join(tmp, "same.fastq")
+        make_dataset(fq_small, N_SAME_BYTES)
+        fq, arc, launched = phase2_end_to_end(dev, tmp)
+        _require(launched, MAIN_PATH, "compress")
+        m1, m2, same = phase3_same_bytes(dev, fq_small, tmp, twins=False)
+        cases, want, t_ref = _step_refs(dev, tmp, _step_store(fq))
+        print(f"[8] the one-card references {t_ref:.1f} s")
+        phase13_cards(tmp, fq, arc, fq_small, m1, m2, same, cases, want)
+    print(f"chip_smoke --cards: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
+    print(_device_line())
+    return 0
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dist-worker":
         return dist_worker(sys.argv[2:])
     t_start = time.perf_counter()
+    if sys.argv[1:] not in ([], ["--cards"]):
+        print("usage: chip_smoke.py [--cards]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--cards"]:
+        return cards_main(t_start)
     report = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=ROOT) as tmp, \
             contextlib.ExitStack() as stack:
@@ -2725,11 +2991,13 @@ def main() -> int:
         phase5_resume(dev, fq_small, tmp, same["codec=auto"])
         phase6_two_ranks(tmp, fq, arc, fq_small, m1, m2, same)
         steps, store = phase7_cluster_step(dev, fq, report)
-        phase8_sharded_step(dev, tmp, store)
+        cases, want = phase8_sharded_step(dev, tmp, store)
+        del store
         phase9_bench(dev, tmp, same)
         phase10_codecs_table(tmp, same["codec=auto"])
         cold = phase11_kernel_bench(tmp)
         phase12_configs(dev, tmp, writer, report)
+        phase13_cards(tmp, fq, arc, fq_small, m1, m2, same, cases, want)
     launched.update(mtc_rans_encode=enc["mtc_rans_encode"],
                     mtc_rans_decode=dec["mtc_rans_decode"],
                     mtc_popcount_verify=ver["mtc_popcount_verify"], **steps)
@@ -2742,9 +3010,7 @@ def main() -> int:
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(_device_line())
     return 0
 
 

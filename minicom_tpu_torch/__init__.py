@@ -6,9 +6,10 @@ on-device ``device``) and stage checkpoint/resume. The device stages
 (whole-read minimizer, consensus vote, windowed contig sketch, rANS scans)
 run as hand-written CUDA kernels on a CUDA device, or as their plain PyTorch
 versions on the CPU; the archive is byte-identical either way and
-byte-identical to the JAX package's. In a ``torch.distributed`` group (gloo,
-``parallel/``) the stages shard across the processes and the archive stays
-the same. The host C++ is this package's own (``native/*.cpp``, built at
+byte-identical to the JAX package's. In a ``torch.distributed`` group
+(``parallel/``: one process a card, gloo for host arrays, NCCL between
+cards where every rank owns one) the stages shard across the processes and
+the archive stays the same. The host C++ is this package's own (``native/*.cpp``, built at
 first use by ``native/__init__.py``).
 
 This package never imports jax or ``minicom_tpu``, and reads no file of

@@ -11,11 +11,13 @@ kernels' plain PyTorch versions), which -d uses for the streams of the
 on-device codecs (--codec device, trans, trans1, trans2, dzt). -d of a
 paired-end archive writes mate 2 to -O (default: the -o path + ".2").
 
-Started by ``torchrun`` (WORLD_SIZE > 1), every process joins one gloo
-group and the run shards across them; rank 0 writes the output and prints
-the closing line:
+Started by ``torchrun`` (WORLD_SIZE > 1), every process joins one group,
+each on its own card where the host has one for each (``cuda:{LOCAL_RANK}``;
+``parallel/distributed.py``), and the run shards across them; rank 0 writes
+the output and prints the closing line (and the --stats summary), and every
+rank prints on standard error the card it ran on:
 
-    torchrun --nproc-per-node 2 -m minicom_tpu_torch.cli -r reads.fastq -o out.mtc
+    torchrun --nproc-per-node 4 -m minicom_tpu_torch.cli -r reads.fastq -o out.mtc
 """
 
 from __future__ import annotations
@@ -86,9 +88,15 @@ def _run(args) -> int:
     from minicom_tpu_torch import compressor  # defer the torch import
     from minicom_tpu_torch.parallel import distributed
 
-    def say(*lines):   # the closing lines: once per group
-        if distributed.process_grid()[0] == 0:
+    pid, nproc = distributed.process_grid()
+
+    def say(summary, *lines):   # the closing lines: once per group
+        if pid == 0:
             print(*lines, sep="\n")
+        if nproc > 1:           # every rank: its card
+            shared = " (shared with another rank)" * summary["card_shared"]
+            print(f"rank {pid} of {nproc}: {summary['device']}{shared}",
+                  file=sys.stderr)
 
     cfg = CompressorConfig(
         k=args.k, diff_threshold=args.e, first_minimizers=args.m,
@@ -104,7 +112,7 @@ def _run(args) -> int:
         out = args.o or os.path.splitext(args.d)[0] + "_dec.reads"
         summary = compressor.decompress(args.d, out, args.O,
                                         device=args.device)
-        say(*([json.dumps(summary)] if args.stats else []),
+        say(summary, *([json.dumps(summary)] if args.stats else []),
             f"Decompressed to {out}")
         return 0
     if args.r or (args.pe1 and args.pe2):
@@ -113,7 +121,7 @@ def _run(args) -> int:
         summary = compressor.compress(
             src, out, cfg, reads_path2=None if args.r else args.pe2,
             device=args.device)
-        say(*([json.dumps(summary)] if args.stats else []),
+        say(summary, *([json.dumps(summary)] if args.stats else []),
             f"Compressed to {out} ({summary['archive_bytes']} bytes, "
             f"{summary['input_bytes'] / summary['archive_bytes']:.2f}x)")
         return 0

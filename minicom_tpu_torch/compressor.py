@@ -24,7 +24,8 @@ Called in every process of a ``torch.distributed`` group
 keeps 1/P of the read store, runs the kernels on its share of the work and
 exchanges results with ordered all-gathers, so the archive and the decoded
 output are the single-process ones, byte for byte. Rank 0 writes the files
-(every rank with MTC_WRITE_ALL_RANKS=1).
+(every rank with MTC_WRITE_ALL_RANKS=1). ``device="cuda"`` is the rank's own
+card there (``distributed.place``), and each summary names it.
 """
 
 from __future__ import annotations
@@ -55,13 +56,26 @@ from minicom_tpu_torch.stats import StageStats, profiler
 
 
 def _device(device) -> torch.device:
+    """``device`` with its card named: "cuda" is the rank's card in a group
+    (``distributed.rank_device``), else the current one; "cuda:i" and "cpu"
+    stay as given. Every thread of a run, the pools' too, then works on
+    that card, whatever its own current device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' requested but no CUDA device is "
                            "available")
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
-    return dev
+    return dist.rank_device() if dev == torch.device("cuda") else dev
+
+
+def _name_device(stats: StageStats, dev: torch.device | None) -> None:
+    """The summary's ``device`` (the card the run used, "cpu" where it ran
+    on the host alone) and ``card_shared`` (another rank of the host runs
+    on that card)."""
+    p = dist.placement()
+    stats.set("device", str(dev) if dev is not None else "cpu")
+    stats.set("card_shared", bool(p and p.shared and dev == p.device))
 
 
 def _load(reads_path, reads_path2):
@@ -99,6 +113,7 @@ def compress(reads_path: str, out_path: str, cfg: CompressorConfig | None = None
                               paired=reads_path2 is not None)
     dev = _device(device)
     stats = stats or StageStats()
+    _name_device(stats, dev)
     trace_dir = os.environ.get("MTC_TRACE_DIR")
     if not trace_dir:
         return _compress(reads_path, out_path, cfg, reads_path2, stats, dev)
@@ -220,6 +235,7 @@ def decompress(archive_path: str, out_path: str,
         dev = None
         if any(is_device_codec(e["codec"]) for e in header["streams"]):
             dev = _device(device)
+        _name_device(stats, dev)
         pre = decode_mod.Prealloc(header)
         meta, streams = container.read_container(archive_path, stats.counters,
                                                  dev)

@@ -20,6 +20,7 @@ from typing import Dict
 import numpy as np
 
 from minicom_tpu_torch.entropy import backend
+from minicom_tpu_torch.ops import cuda
 from minicom_tpu_torch.parallel import distributed as dist
 from minicom_tpu_torch.stats import substage as _sub
 
@@ -116,6 +117,7 @@ def write_container(path: str, meta: dict, streams: Dict[str, bytes],
     ranks meet before returning: a write that fails on one rank removes its
     temporary file and raises on every rank."""
     names = sorted(streams)
+    device = cuda.named(device)   # the pool's threads code on this card
 
     def encode_one(name: str) -> tuple[str, bytes]:
         raw = streams[name]
@@ -208,6 +210,7 @@ def read_container(path: str, stats: dict | None = None, device=None
     """(header, raw streams). ``stats`` receives each stream's entropy
     decode seconds as entropy_<stream>_s; ``device`` runs the on-device
     codecs."""
+    device = cuda.named(device)   # the pool's threads decode on this card
     with open(path, "rb") as f:
         data = f.read()
     meta, hlen = _parse_header(path, data)

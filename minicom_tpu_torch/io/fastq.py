@@ -138,9 +138,12 @@ def _parse_slice(path: str) -> np.ndarray:
         return np.zeros((0, 0), np.uint8)
     r0 = int(rec[0])
     # records starting in this slice may end past hi: a record is 4 lines,
-    # so finish the open one from the next bytes of the file
+    # so finish the open one from the next bytes of the file. A line cut
+    # at hi is one more line to finish, and where it starts a record
+    # (done a multiple of 4) that whole record is this slice's
     done = int((nl >= r0).sum())  # complete lines from r0 to slice end
-    need = (4 - done % 4) % 4
+    cut = int(buf[-1] != ord("\n"))
+    need = -(-(done + cut) // 4) * 4 - done
     tail = b""
     if need:
         with open(path, "rb") as f:

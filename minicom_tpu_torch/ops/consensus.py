@@ -137,8 +137,9 @@ def _upload(rd, col, seg_ptr, col_ptr, L, dev):
     tile)."""
     tiles, idx = _plan(col, seg_ptr, col_ptr, L)
     parts = (rd, col, tiles.ravel(), idx)
-    host = torch.empty(sum(map(len, parts)), dtype=torch.int64,
-                       pin_memory=dev.type == "cuda")
+    n = sum(map(len, parts))
+    host = (cuda.pinned(n, torch.int64, dev) if dev.type == "cuda"
+            else torch.empty(n, dtype=torch.int64))
     np.concatenate(parts, out=host.numpy())
     cap = int((tiles[:, 1] - tiles[:, 0]).max()) if len(tiles) else 0
     return cuda.to_device(host, dev, non_blocking=True), len(tiles), cap

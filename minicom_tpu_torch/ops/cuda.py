@@ -172,6 +172,27 @@ def to_host(t: torch.Tensor, out: torch.Tensor | None = None
     return out
 
 
+def named(dev):
+    """``dev`` (None, a name or a torch.device) with its card named: a
+    CUDA device without an index is the calling thread's current card,
+    fixed here for the threads it is handed to, whose own current card is
+    0."""
+    if dev is None:
+        return None
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def pinned(n: int, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
+    """An empty host tensor of ``n`` items in page-locked memory, taken
+    under ``dev``'s context: the host allocator uses the calling thread's
+    current card where that has a context, so the card is named here."""
+    with torch.cuda.device(dev):
+        return torch.empty(n, dtype=dtype, pin_memory=True)
+
+
 def sketch_layout(w: int) -> tuple[int, int]:
     """The contig sketch's block layout for windows of up to ``w`` starts:
     (the most k-mer starts of a row that a warp takes, 0 for none; rows per

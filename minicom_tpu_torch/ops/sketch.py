@@ -122,7 +122,7 @@ def sketch_reads_flat(codes: torch.Tensor, rids: np.ndarray,
     n = len(rids)
     if n == 0:
         return np.zeros((3, 0), np.uint32)
-    buf = torch.empty(3 * n, dtype=torch.int32, pin_memory=True)
+    buf = cuda.pinned(3 * n, torch.int32, codes.device)
     if n >= HOST_PARALLEL:
         buf[:n].copy_(torch.from_numpy(rids))
     else:

@@ -1,4 +1,4 @@
-"""Multi-process compression over ``torch.distributed`` (gloo).
+"""Multi-process compression over ``torch.distributed``.
 
 The heavy stages split the SAME canonical work across the processes of a
 group and exchange results with ordered ragged all-gathers, so the archive is
@@ -10,13 +10,20 @@ ranges of the merge search, contig ranges of the realign probe, member
 ranges of the serializer and the decoder, stream ranges of the container.
 Rank-order concatenation of the pieces reproduces the serial order.
 
-Every payload is a host numpy array, so the backend is gloo on CPU hosts and
-on GPU hosts alike: ranks may share one GPU, which NCCL refuses.
+Every payload of this module is a host numpy array and goes over gloo, as
+the JAX package's ``multihost_utils`` moved host arrays. One process runs
+per card, the PyTorch form of the JAX mesh: ``initialize`` binds each rank
+to its card (``place``: ``cuda:{local_rank}`` where the host has a card for
+each local rank) and, where every rank owns its card, the group carries
+CUDA tensors over NCCL beside gloo (``choose_backend``), which
+``parallel/mesh.py``'s sharded step uses between cards. Where ranks share
+a card (NCCL refuses two ranks on one card) or the host has none, the group
+is gloo only.
 
-Usage, one process per host or card:
+Usage, one process per card:
 
-    torchrun --nproc-per-node 2 prog.py     # prog calls initialize()
-    # or, without torchrun:
+    torchrun --nproc-per-node 4 prog.py     # prog calls initialize()
+    # or, without torchrun (one host: the local rank is the rank):
     distributed.initialize("file:///shared/pg", world_size=2, rank=r)
     compressor.compress(...)   # stages shard; rank 0 writes the archive
 """
@@ -24,6 +31,7 @@ Usage, one process per host or card:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
 import os
 
@@ -34,19 +42,111 @@ import torch.distributed as tdist
 _PID = 0
 _NPROC = 1
 
+# both backends: host tensors over gloo, CUDA tensors over NCCL
+MIXED = "cpu:gloo,cuda:nccl"
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """The card a rank runs on, and whether another rank of its host runs
+    on the same card."""
+    device: torch.device
+    shared: bool
+
+
+# what ``initialize`` chose; None outside a group it joined
+_PLACEMENT: Placement | None = None
+_BACKEND: str | None = None
+
+
+def place(local_rank: int, local_world_size: int, count: int) -> Placement:
+    """The card of local rank ``local_rank`` of ``local_world_size`` on a
+    host with ``count`` cards: ``cuda:{local_rank}`` where there is a card
+    for each local rank, else ``cuda:{local_rank % count}``, shared by the
+    local ranks equal modulo ``count``. RuntimeError without a card."""
+    if count < 1:
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available")
+    if not 0 <= local_rank < local_world_size:
+        raise ValueError(f"local rank {local_rank} outside "
+                         f"{local_world_size} local ranks")
+    card = local_rank % count
+    return Placement(torch.device("cuda", card),
+                     card + count < local_world_size)
+
+
+def choose_backend(world_size: int, local_world_size: int,
+                   count: int) -> str:
+    """The backend of a group of ``world_size`` ranks, ``local_world_size``
+    of them on a host with ``count`` cards: gloo and NCCL (``MIXED``) where
+    every rank owns a card, gloo alone where ranks share one, there is
+    none, or the group is one rank (nothing to exchange). The same on every
+    rank of a host, so the ranks agree."""
+    return MIXED if world_size > 1 and local_world_size <= count else "gloo"
+
+
+def local_ranks(rank: int, world_size: int,
+                local_rank: int | None = None) -> tuple[int, int]:
+    """(local rank, local world size): ``local_rank`` where given, else
+    torchrun's LOCAL_RANK, else the rank; torchrun's LOCAL_WORLD_SIZE, else
+    the world size (a group of one host)."""
+    env = os.environ
+    if local_rank is None:
+        local_rank = int(env.get("LOCAL_RANK", rank))
+    return local_rank, int(env.get("LOCAL_WORLD_SIZE", world_size))
+
 
 def initialize(init_method: str = "env://", world_size: int | None = None,
                rank: int | None = None,
-               timeout: datetime.timedelta = datetime.timedelta(minutes=30)
-               ) -> None:
-    """Join a gloo process group. ``env://`` reads MASTER_ADDR, MASTER_PORT,
-    WORLD_SIZE and RANK (as ``torchrun`` sets them); a ``file://`` or
-    ``tcp://`` method needs ``world_size`` and ``rank``. A collective that
-    waits longer than ``timeout`` raises."""
+               timeout: datetime.timedelta = datetime.timedelta(minutes=30),
+               local_rank: int | None = None) -> None:
+    """Join a process group, this rank bound to its card where the host has
+    one (``place``, then ``torch.cuda.set_device``), over the backend
+    ``choose_backend`` gives. ``env://`` reads MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE and RANK, and LOCAL_RANK and LOCAL_WORLD_SIZE (as
+    ``torchrun`` sets them); a ``file://`` or ``tcp://`` method needs
+    ``world_size`` and ``rank``, and takes ``local_rank`` (default: the
+    rank; the host's ranks: the world size, a group of one host).
+    A collective that waits longer than ``timeout`` raises."""
+    global _PLACEMENT, _BACKEND
     kw = {} if world_size is None else {"world_size": world_size,
                                         "rank": rank}
-    tdist.init_process_group("gloo", init_method=init_method,
+    g_rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+    g_world = (int(os.environ.get("WORLD_SIZE", 1)) if world_size is None
+               else world_size)
+    lr, lws = local_ranks(g_rank, g_world, local_rank)
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    backend = choose_backend(g_world, lws, count)
+    placement = place(lr, lws, count) if count else None
+    if placement is not None:
+        torch.cuda.set_device(placement.device)
+        if backend == MIXED:   # NCCL's communicator made now, on this card
+            kw["device_id"] = placement.device
+    tdist.init_process_group(backend, init_method=init_method,
                              timeout=timeout, **kw)
+    _PLACEMENT, _BACKEND = placement, backend
+
+
+def placement() -> Placement | None:
+    """This rank's placement in a group that ``initialize`` joined on a
+    host with cards; None otherwise."""
+    if _PLACEMENT is not None and tdist.is_initialized():
+        return _PLACEMENT
+    return None
+
+
+def rank_device() -> torch.device:
+    """The card this process runs on: its rank's (``placement``) in a
+    group, else the calling thread's current CUDA device."""
+    p = placement()
+    return p.device if p else torch.device("cuda",
+                                           torch.cuda.current_device())
+
+
+def nccl() -> bool:
+    """Whether the group carries CUDA tensors over NCCL: every rank owns
+    its card."""
+    return placement() is not None and _BACKEND == MIXED
 
 
 def set_process_grid(pid: int, nproc: int) -> None:
@@ -187,10 +287,12 @@ def shutdown(in_step: bool = True) -> None:
     After an exception that this rank may have raised alone, pass
     ``in_step=False``: no barrier, which the other ranks might never
     reach."""
+    global _PLACEMENT, _BACKEND
     if tdist.is_available() and tdist.is_initialized():
         if in_step:
             tdist.barrier()
         tdist.destroy_process_group()
+    _PLACEMENT = _BACKEND = None
 
 
 @contextlib.contextmanager

@@ -5,9 +5,9 @@ Replaces ``minicom_tpu/parallel/mesh.py::sharded_cluster_step``, which jits
 the JAX ``cluster_step`` with the read batch sharded over the mesh axis
 ``d``: consensus and coverage come out replicated, the per-read vectors
 sharded like the input. Here one process per shard, in a
-``torch.distributed`` gloo group, stands in for that axis. Nothing else of
-the JAX module is kept: one process per device takes the place of its
-in-process mesh.
+``torch.distributed`` group, stands in for that axis: one process per card
+(``distributed.place``) is the port's counterpart of the in-process mesh.
+Nothing else of the JAX module is kept.
 
 On each rank, in order (``ops/step.py`` holds the kernels' wrappers):
 
@@ -32,9 +32,13 @@ On each rank, in order (``ops/step.py`` holds the kernels' wrappers):
    into the whole output on every rank, at most ``CHUNK_BYTES`` a call;
    diffs all-gathered; seg_id and order sliced, being replicated.
 
-The collectives go over gloo through host memory (NCCL refuses two ranks on
-one card, and ``parallel/distributed.py`` is gloo only). The compute stays
-on the device of the local rows; only the exchanged bytes cross the host.
+The four exchanges (keys, rows, columns, diffs) are written once, over
+tensors on the exchange device (``exchange_device``): the rank's own card
+where every rank owns one (``distributed.nccl``), so NCCL moves them between
+cards and none crosses the host, as XLA's collectives over ICI; else the
+host, over gloo (ranks that share a card, which NCCL refuses, or CPU ranks),
+the rows' bytes copied through host memory. The compute stays on the device
+of the local rows.
 
 The module also exposes the process's crossing counters as the JAX module
 does: ``device_seconds()``, ``device_bytes()`` and
@@ -43,6 +47,7 @@ does: ``device_seconds()``, ``device_bytes()`` and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import time
 
@@ -58,41 +63,92 @@ from minicom_tpu_torch.parallel import distributed as dist
 CHUNK_BYTES = 1 << 30   # the most bytes of one broadcast of output columns
 
 
-class _Record:
-    """What a call fills into its ``stats`` dict, if given one: device ms
-    per piece (CUDA events, on the card), seconds and bytes this rank sent
-    and received per collective, host-device copies, what it owned, and
-    the wall."""
+def exchange_device(dev: torch.device) -> torch.device:
+    """Where the step's exchanges run for rows on ``dev``: ``dev`` itself
+    where the group carries CUDA tensors over NCCL (every rank owns its
+    card), else the host (gloo)."""
+    if dev.type == "cuda" and dist.nccl():
+        return dev
+    return torch.device("cpu")
 
-    def __init__(self, stats: dict | None, dev: torch.device):
+
+class _Record:
+    """What a call fills into its ``stats`` dict, if given one: the backend
+    of its exchanges, device ms per piece (CUDA events, on the card),
+    seconds and bytes this rank sent and received per collective and the
+    bytes each moved between the card and the host (``host_B``), host-device
+    copies, what it owned, and the wall (to the card's last work)."""
+
+    def __init__(self, stats: dict | None, dev: torch.device,
+                 xdev: torch.device):
         self.stats = stats
+        self.dev, self.xdev = dev, xdev
         self.events = []
+        self.host = collections.Counter()
         self.on_card = dev.type == "cuda"
         self.t0 = time.perf_counter()
         if stats is not None:
             stats.clear()
-            stats.update(device_ms={}, collectives={},
+            stats.update(backend="nccl" if xdev.type == "cuda" else "gloo",
+                         device_ms={}, collectives={},
                          copies={"s": 0.0, "d2h_B": 0, "h2d_B": 0})
+
+    def _events(self, dev: torch.device):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record(torch.cuda.current_stream(dev))
+        return ev
 
     @contextlib.contextmanager
     def device(self, name: str):
         if self.stats is None or not self.on_card:
             yield
             return
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
+        ev = self._events(self.dev)
         yield
-        ev[1].record()
+        ev[1].record(torch.cuda.current_stream(self.dev))
         self.events.append((name, *ev))
 
     @contextlib.contextmanager
     def collective(self, name: str, sent: int, recv: int):
+        """Seconds of the block: host clock over gloo, CUDA events on the
+        card over NCCL (an NCCL call returns before it ends)."""
+        if self.stats is None:
+            yield
+            return
+        entry = {"s": 0.0, "sent_B": int(sent), "recv_B": int(recv)}
+        self.stats["collectives"][name] = entry
+        if self.xdev.type == "cuda":
+            ev = self._events(self.xdev)
+            yield
+            ev[1].record(torch.cuda.current_stream(self.xdev))
+            self.events.append((entry, *ev))
+            return
         t = time.perf_counter()
         yield
-        if self.stats is not None:
-            self.stats["collectives"][name] = {
-                "s": time.perf_counter() - t, "sent_B": int(sent),
-                "recv_B": int(recv)}
+        entry["s"] = time.perf_counter() - t
+
+    def to_x(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """``t`` on the exchange device, a crossing counted as the
+        exchange ``name``'s host bytes."""
+        if t.device == self.xdev:
+            return t
+        self.host[name] += t.numel() * t.element_size()
+        return self.to_host(t)
+
+    def into_x(self, t: torch.Tensor, out: torch.Tensor, name: str) -> None:
+        """``t`` written into ``out``, a view of an exchange buffer."""
+        if t.device == out.device:
+            out[:] = t
+            return
+        self.host[name] += t.numel() * t.element_size()
+        self.to_host(t, out)
+
+    def from_x(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """An exchange's result ``t`` on the device of the rows."""
+        if self.xdev == self.dev:
+            return t
+        self.host[name] += t.numel() * t.element_size()
+        return self.to_device(t, self.dev)
 
     def to_host(self, t: torch.Tensor, out: torch.Tensor | None = None
                 ) -> torch.Tensor:
@@ -120,10 +176,15 @@ class _Record:
     def finish(self, **owned) -> None:
         if self.stats is None:
             return
-        if self.events:
-            self.events[-1][2].synchronize()
-        for name, a, b in self.events:
-            self.stats["device_ms"][name] = a.elapsed_time(b)
+        if self.on_card:
+            torch.cuda.synchronize(self.dev)
+        for what, a, b in self.events:
+            if isinstance(what, dict):
+                what["s"] = a.elapsed_time(b) / 1e3
+            else:
+                self.stats["device_ms"][what] = a.elapsed_time(b)
+        for name, entry in self.stats["collectives"].items():
+            entry["host_B"] = self.host[name]
         self.stats["owned"] = owned
         self.stats["wall_s"] = time.perf_counter() - self.t0
 
@@ -157,19 +218,48 @@ def _local_keys(codes: torch.Tensor, k: int):
     return step._keys(codes, sketch.sketch_reads_device(codes, rids, k), k)
 
 
+def _allgather(parts: list[torch.Tensor], counts: list[int]
+               ) -> list[torch.Tensor]:
+    """Collective: 1-D tensors of ``counts[rank]`` items each, on one device,
+    gathered in rank order over that device: tensors of sum(counts) items.
+    A rank's items go as one row of bytes, each part padded to the largest
+    count."""
+    nproc = len(counts)
+    most = max(counts)
+    dev = parts[0].device
+    width = [most * p.element_size() for p in parts]
+    row = torch.zeros(sum(width), dtype=torch.uint8, device=dev)
+    at = 0
+    for p, w in zip(parts, width):
+        if p.numel():   # (an empty array's view may have stride 0)
+            raw = p.reshape(-1).view(torch.uint8)
+            row[at:at + len(raw)] = raw
+        at += w
+    got = torch.empty((nproc, len(row)), dtype=torch.uint8, device=dev)
+    tdist.all_gather(list(got.unbind(0)), row)
+    out, at = [], 0
+    for p, w in zip(parts, width):
+        size = p.element_size()
+        out.append(torch.cat([got[r, at:at + counts[r] * size]
+                              for r in range(nproc)]).view(p.dtype))
+        at += w
+    return out
+
+
 def _exchange_rows(send: torch.Tensor, send_counts: list[int],
                    recv_counts: list[int]) -> torch.Tensor:
-    """Collective: host uint8 rows [n, L], the first send_counts[0] to rank
-    0, the next send_counts[1] to rank 1, ...; returns the rows received,
-    recv_counts[r] from rank r, in rank order."""
-    recv = torch.empty((sum(recv_counts), send.shape[1]), dtype=torch.uint8)
+    """Collective: uint8 rows [n, L], the first send_counts[0] to rank 0,
+    the next send_counts[1] to rank 1, ...; returns the rows received,
+    recv_counts[r] from rank r, in rank order, on the device of ``send``."""
+    recv = torch.empty((sum(recv_counts), send.shape[1]), dtype=torch.uint8,
+                       device=send.device)
     tdist.all_to_all_single(recv, send, recv_counts, send_counts)
     return recv
 
 
 def _broadcast_ranges(out: torch.Tensor, col: list[int]) -> None:
-    """Collective: rank r's range out[col[r]:col[r + 1]] of a host tensor
-    broadcast in place to every rank, at most CHUNK_BYTES a call."""
+    """Collective: rank r's range out[col[r]:col[r + 1]] broadcast in place
+    to every rank, at most CHUNK_BYTES a call."""
     step_n = max(1, CHUNK_BYTES // out.element_size())
     for r in range(len(col) - 1):
         for a in range(col[r], col[r + 1], step_n):
@@ -197,15 +287,19 @@ def sharded_cluster_step(codes_local: torch.Tensor, k: int, span_cols: int,
     plain versions. ValueError on every rank for what ``cluster_step``
     refuses (on the global N) and for ranks whose rows differ in length or
     whose input is not a uint8 matrix; a failed launch or collective
-    raises. ``stats``, a dict, is filled with this call's device ms per
-    piece (on the card), seconds and bytes sent and received per
-    collective, host-device copies, what the rank owned and the wall."""
+    raises: over NCCL too, with no other way round. ``stats``, a dict, is
+    filled with the exchanges' backend ("nccl" or "gloo"), this call's
+    device ms per piece (on the card), seconds and bytes sent and received
+    per collective and the bytes each moved between card and host
+    (``host_B``: 0 over NCCL), host-device copies, what the rank owned and
+    the wall."""
     pid, nproc = dist.process_grid()
     if nproc == 1:
         return step.cluster_step(codes_local, k, span_cols)
     dist.raise_together(_local_error(codes_local))
     dev = codes_local.device
-    rec = _Record(stats, dev)
+    xdev = exchange_device(dev)
+    rec = _Record(stats, dev, xdev)
     n_r, L = codes_local.shape
     with rec.collective("shapes", 16 * (nproc - 1), 16 * (nproc - 1)):
         shapes = dist.allgather_ragged(np.array([n_r, L], np.int64))
@@ -222,11 +316,10 @@ def sharded_cluster_step(codes_local: torch.Tensor, k: int, span_cols: int,
     # 1-2. the local keys, gathered in rank order
     with rec.device("keys"):
         key, mz = _local_keys(codes_local, k)
-    key, mz = rec.to_host(key).numpy(), rec.to_host(mz).numpy()
+    key, mz = rec.to_x(key, "keys"), rec.to_x(mz, "keys")
     with rec.collective("keys", 12 * n_r * (nproc - 1), 12 * (N - n_r)):
-        key, mz = dist.allgather_ragged_many([key, mz])
-    key = rec.to_device(torch.from_numpy(key), dev)
-    mz = rec.to_device(torch.from_numpy(mz), dev)
+        key, mz = _allgather([key, mz], shapes[:, 0].tolist())
+    key, mz = rec.from_x(key, "keys"), rec.from_x(mz, "keys")
 
     # 3. sort and segments, the same on every rank
     with rec.device("sort"):
@@ -269,14 +362,14 @@ def sharded_cluster_step(codes_local: torch.Tensor, k: int, span_cols: int,
 
     # 5. the owned segments' rows, sorted position by position as received
     held = torch.nonzero(src == pid)[:, 0]
-    send = rec.to_host(codes_local[(order32[held] - b0).long()])
+    send = rec.to_x(codes_local[(order32[held] - b0).long()], "rows")
     del held
     send_counts, recv_counts = C[pid].tolist(), C[:, pid].tolist()
     with rec.collective("rows", L * (sum(send_counts) - C[pid, pid]),
                         L * (sum(recv_counts) - C[pid, pid])):
         rows = _exchange_rows(send, send_counts, recv_counts)
     del send
-    rows = rec.to_device(rows, dev)
+    rows = rec.from_x(rows, "rows")
     got = torch.argsort(src[f0:f1], stable=True)
     order_loc = torch.empty(n_own, dtype=torch.int32, device=dev)
     order_loc[got] = torch.arange(n_own, dtype=torch.int32, device=dev)
@@ -306,21 +399,23 @@ def sharded_cluster_step(codes_local: torch.Tensor, k: int, span_cols: int,
 
     # 7. the outputs
     lo, hi = col[pid], col[pid + 1]
-    cons = torch.empty(span_cols, dtype=torch.uint8)
-    cov = torch.empty(span_cols, dtype=torch.int32)
-    if voted:   # straight into the whole output: no transient host copy
-        rec.to_host(cons_loc, cons[lo:hi])
-        rec.to_host(cov_loc, cov[lo:hi])
+    cons = torch.empty(span_cols, dtype=torch.uint8, device=xdev)
+    cov = torch.empty(span_cols, dtype=torch.int32, device=xdev)
+    if voted:   # straight into the whole output: no transient copy
+        rec.into_x(cons_loc, cons[lo:hi], "columns")
+        rec.into_x(cov_loc, cov[lo:hi], "columns")
         del cons_loc, cov_loc
     with rec.collective("columns", 5 * (hi - lo) * (nproc - 1),
                         5 * (span_cols - (hi - lo))):
         _broadcast_ranges(cons, col)
         _broadcast_ranges(cov, col)
-    diffs_loc = rec.to_host(diffs_loc).numpy()
+    diffs_loc = rec.to_x(diffs_loc, "diffs")
     with rec.collective("diffs", 4 * n_own * (nproc - 1), 4 * (N - n_own)):
-        diffs = dist.allgather_ragged(diffs_loc)
-    diffs = rec.to_device(torch.from_numpy(diffs[b0:b1].copy()), dev)
-    out = (rec.to_device(cons, dev), rec.to_device(cov, dev), diffs,
+        (diffs,) = _allgather([diffs_loc], [f[r + 1] - f[r]
+                                            for r in range(nproc)])
+    del diffs_loc
+    out = (rec.from_x(cons, "columns"), rec.from_x(cov, "columns"),
+           rec.from_x(diffs[b0:b1].clone(), "diffs"),
            seg_id[b0:b1].clone(), order32[b0:b1].clone())
     rec.finish(rows=n_r, segments=g1 - g0, members=n_own, columns=hi - lo,
                voted=voted)

@@ -43,16 +43,22 @@ def substage(counters: dict | None, key: str):
                                     + time.perf_counter() - t0)
 
 
+@contextlib.contextmanager
 def profiler(device, **kwargs):
-    """A ``torch.profiler.profile`` of the host, every thread of it (the
-    entropy stage's pool threads open spans too), and, where ``device`` is a
-    CUDA device, of the card."""
+    """A running ``torch.profiler.profile`` of the host, every thread of it
+    (the entropy stage's pool threads open spans too), and, where ``device``
+    is a CUDA device, of the card, started and stopped with that card
+    current."""
+    dev = torch.device(device)
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    card = contextlib.nullcontext()
+    if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(
-        activities=acts, experimental_config=torch._C._profiler.
-        _ExperimentalConfig(profile_all_threads=True), **kwargs)
+        card = torch.cuda.device(dev)
+    with card, torch.profiler.profile(
+            activities=acts, experimental_config=torch._C._profiler.
+            _ExperimentalConfig(profile_all_threads=True), **kwargs) as prof:
+        yield prof
 
 
 class StageStats:

@@ -37,6 +37,19 @@ hold ``{rank}``. Imports no jax. Jobs:
 * {"op": "mesh_errors"}: the sharded step on an int64 matrix from rank 1,
   on reads of another length on rank 1, and at k = 0; reports what each
   rank raised.
+* {"op": "allgather", "out": path}: the sharded step's all-gather of
+  tensors (``mesh._allgather``) and the host all-gather of the same arrays
+  (``allgather_ragged_many``), on the inputs of ``collective_inputs``;
+  saves both to ``out``.
+* {"op": "fastq", "fq": path, "out": path}: the FASTQ loader's byte
+  slices (``read_fastq_store``: this rank's rows; ``read_fastq_full``:
+  every row), saved to ``out`` (an .npz) as "local" and "full".
+* {"op": "placement", "cards": n}, first in a group's jobs: the group joins
+  as on a host with ``n`` cards (``torch.cuda``'s count mocked; the backend
+  that ``initialize`` asks for is recorded and gloo joined, this host having
+  no NCCL); reports the backend, the cards set current, the placement, the
+  device "cuda" and "cuda:1" resolve to, the summary's device and the
+  exchange device of the sharded step.
 """
 
 import datetime
@@ -166,9 +179,12 @@ def write_mesh_cases(path, cases, split):
 def _mesh(rank, world, job):
     import torch
     from minicom_tpu_torch.ops import cuda
+    from minicom_tpu_torch.parallel import distributed as dist
     from minicom_tpu_torch.parallel import mesh
     mesh.CHUNK_BYTES = job.get("chunk_bytes", mesh.CHUNK_BYTES)
     dev = torch.device(job.get("device", "cpu"))
+    if dev == torch.device("cuda"):   # the rank's own card
+        dev = dist.rank_device()
     out, res = {}, {}
     with np.load(job["cases"]) as z:
         for name in sorted(f[:-6] for f in z.files if f.endswith("/codes")):
@@ -248,19 +264,22 @@ def _compress(rank, job):
                               fmt(job["decode"]),
                               fmt(job.get("decode2")), device=dev)
     return {"resumed_from": summary.get("resumed_from"),
-            "archive_bytes": summary["archive_bytes"], "launched": launched}
+            "archive_bytes": summary["archive_bytes"], "launched": launched,
+            "device": summary["device"],
+            "card_shared": summary["card_shared"]}
 
 
-def run_group(tmp, tag, world, jobs, expect_ok=True):
+def run_group(tmp, tag, world, jobs, expect_ok=True, env=None):
     """Run ``jobs`` in a group of ``world`` worker processes that meet
-    through ``tmp/<tag>.pg``; returns each rank's (returncode, output).
-    Every wait has a timeout, after which the whole group is killed."""
+    through ``tmp/<tag>.pg``, with ``env`` added to their environment;
+    returns each rank's (returncode, output). Every wait has a timeout,
+    after which the whole group is killed."""
     import subprocess
     spec = os.path.join(tmp, f"{tag}.json")
     with open(spec, "w") as f:
         json.dump(jobs, f)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2",
-               GLOO_SOCKET_IFNAME="lo")
+               GLOO_SOCKET_IFNAME="lo", **(env or {}))
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__),
          os.path.join(tmp, f"{tag}.pg"), str(world), str(r), spec],
@@ -290,17 +309,93 @@ def job_results(res, rank=0) -> list:
             if line.startswith("JOB ")]
 
 
+def _fake_cards(count: int) -> dict:
+    """``torch.cuda`` as on a host with ``count`` cards, for the group's
+    start: what ``initialize`` asks of it is recorded in the dict
+    returned."""
+    import torch
+    import torch.distributed as tdist
+    seen = {"set_device": [], "backend": None, "device_id": None}
+    torch.cuda.is_available = lambda: count > 0
+    torch.cuda.device_count = lambda: count
+    torch.cuda.set_device = lambda d: seen["set_device"].append(
+        str(torch.device(d)))
+    join = tdist.init_process_group
+
+    def init(backend, **kw):
+        seen["backend"] = backend
+        dev = kw.pop("device_id", None)
+        seen["device_id"] = None if dev is None else str(dev)
+        join("gloo", **kw)
+
+    tdist.init_process_group = init
+    return seen
+
+
+def _placement(rank, seen):
+    from minicom_tpu_torch import compressor
+    from minicom_tpu_torch.parallel import distributed as dist
+    from minicom_tpu_torch.parallel import mesh
+    from minicom_tpu_torch.stats import StageStats
+    p = dist.placement()
+    res = dict(seen, placement=p and [str(p.device), p.shared],
+               nccl=dist.nccl())
+    try:
+        dev = compressor._device("cuda")
+    except RuntimeError as e:
+        res["raised"] = str(e)
+        return res
+    res["explicit"] = str(compressor._device("cuda:1"))
+    st = StageStats()
+    compressor._name_device(st, dev)
+    summary = st.summary()
+    res.update(cuda=str(dev), summary=[summary["device"],
+                                       summary["card_shared"]],
+               exchange=str(mesh.exchange_device(dev)))
+    return res
+
+
+def _allgather(rank, world, job):
+    import torch
+    from minicom_tpu_torch.parallel import distributed as dist
+    from minicom_tpu_torch.parallel import mesh
+    arrays = collective_inputs(rank, world)["arrays"]
+    counts = dist.allgather_ragged(np.array([len(arrays[0])], np.int64))
+    got = mesh._allgather([torch.from_numpy(a) for a in arrays],
+                          counts.tolist())
+    want = dist.allgather_ragged_many(arrays)
+    got = [g.numpy() for g in got]
+    np.savez(job["out"].format(rank=rank), *got, *want)
+    return {"dtypes": [str(g.dtype) for g in got]}
+
+
+def _fastq(rank, job):
+    from minicom_tpu_torch.io import fastq
+    store = fastq.read_fastq_store(job["fq"])
+    np.savez(job["out"].format(rank=rank), local=store.local,
+             full=fastq.read_fastq_full(job["fq"]))
+    return {"rows": len(store.local)}
+
+
 def main():
     init_file, world, rank, jobs = sys.argv[1:5]
     world, rank = int(world), int(rank)
+    with open(jobs) as f:
+        jobs = json.load(f)
+    seen = (_fake_cards(jobs[0]["cards"])
+            if jobs and jobs[0]["op"] == "placement" else None)
     from minicom_tpu_torch.parallel import distributed as dist
     dist.initialize(f"file://{init_file}", world_size=world, rank=rank,
                     timeout=datetime.timedelta(seconds=120))
-    with open(jobs) as f:
-        jobs = json.load(f)
     with dist.closing_group():
         for job in jobs:
-            if job["op"] == "collectives":
+            if job["op"] == "placement":
+                res = _placement(rank, seen)
+            elif job["op"] == "allgather":
+                res = _allgather(rank, world, job)
+            elif job["op"] == "fastq":
+                res = _fastq(rank, job)
+            elif job["op"] == "collectives":
                 res = _collectives(rank, world, job["out"].format(rank=rank))
             elif job["op"] == "sketch":
                 res = _sketch(rank, job)

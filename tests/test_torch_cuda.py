@@ -8,7 +8,8 @@ card (which has no jax, so without the repo conftest):
 (the second: the rANS kernels alone, seconds; ``-k sketch`` and ``-k
 consensus`` take the other kernels alone, ``-k sketch_reads`` the read
 minimizer, ``-k step`` the fused cluster step, ``-k mesh`` the sharded step
-in two ranks on one card, ``-k accounting`` the counted crossings between
+in two ranks on one card, ``-k cards`` in two ranks on two cards (NCCL;
+skipped with fewer cards), ``-k accounting`` the counted crossings between
 host and card, ``-k kernel_bench`` the kernel table of
 ``tools/kernel_bench_torch.py`` at an eighth of its sizes).
 """
@@ -588,26 +589,48 @@ def test_step_refuses_long_reads_on_the_card(dev):
 MESH_CASES = _step_cases.mesh_cases()
 
 
-@pytest.fixture(scope="module")
-def mesh_ranks(tmp_path_factory):
-    """Two ranks on cuda:0 (gloo) run the sharded step on every case of
-    ``mesh_cases``: per rank, its outputs and each case's launches and
-    stats."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
+def _cards(n):
+    """The environment of a group that sees the first ``n`` cards of this
+    host: its ranks share them (``distributed.place``)."""
+    seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = seen.split(",") if seen else [str(i) for i in range(n)]
+    return {"CUDA_VISIBLE_DEVICES": ",".join(ids[:n])}
+
+
+def _mesh_group(tmp, cards, device):
+    """Two ranks that see ``cards`` cards run the sharded step on every
+    case of ``mesh_cases`` on ``device``: per rank, its outputs and each
+    case's launches and stats."""
     worker = _load_helper("_torch_dist_worker")
-    tmp = str(tmp_path_factory.mktemp("mesh"))
     cases = os.path.join(tmp, "cases.npz")
     worker.write_mesh_cases(cases, MESH_CASES, _step_cases.mesh_split)
     res = worker.run_group(tmp, "m2", 2, [dict(
-        op="mesh", cases=cases, device="cuda:0",
-        out=os.path.join(tmp, "m2_{rank}.npz"))])
+        op="mesh", cases=cases, device=device,
+        out=os.path.join(tmp, "m2_{rank}.npz"))], env=_cards(cards))
     ranks = []
     for r in range(2):
         with np.load(os.path.join(tmp, f"m2_{r}.npz")) as z:
             ranks.append(({f: z[f] for f in z.files},
                           worker.job_results(res, r)[0]))
     return ranks
+
+
+@pytest.fixture(scope="module")
+def mesh_ranks(tmp_path_factory):
+    """Two ranks on cuda:0 (gloo), the group seeing one card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return _mesh_group(str(tmp_path_factory.mktemp("mesh")), 1, "cuda:0")
+
+
+@pytest.fixture(scope="module")
+def cards_ranks(tmp_path_factory):
+    """Two ranks on two cards, each on its own ("cuda": cuda:0 and cuda:1),
+    the exchanges over NCCL."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA devices, {torch.cuda.device_count()} "
+                    "here")
+    return _mesh_group(str(tmp_path_factory.mktemp("cards")), 2, "cuda")
 
 
 @pytest.mark.parametrize("name", list(MESH_CASES))
@@ -631,6 +654,28 @@ def test_mesh_two_ranks_equal_one_card(dev, mesh_ranks, name):
             ("mtc_step_segments", 1),
             ("mtc_step_vote", int(owned["voted"]))) if n}
         assert set(res[name]["device_ms"]) >= {"sort", "segments"}
+        assert res[name]["backend"] == "gloo"
+
+
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_cards_two_ranks_over_nccl_equal_one_card(dev, cards_ranks, name):
+    """Rank r on cuda:r: the rank-order concatenation of the two ranks'
+    outputs equals the one-card cluster_step's, consensus and coverage
+    whole on each; each rank's exchanges went over NCCL and moved no byte
+    through the host, and its device ms were taken on its card."""
+    codes, k, span = MESH_CASES[name]
+    want = _step_once(torch.from_numpy(codes).to(dev), k, span)
+    for i, w in enumerate(want):
+        parts = [outs[f"{name}/{i}"] for outs, _ in cards_ranks]
+        for g in (parts if i < 2 else [np.concatenate(parts)]):
+            np.testing.assert_array_equal(g, w)
+    for _, res in cards_ranks:
+        st = res[name]
+        assert st["backend"] == "nccl"
+        assert {c: v["host_B"] for c, v in st["collectives"].items()} == {
+            c: 0 for c in ("shapes", "keys", "rows", "columns", "diffs")}
+        assert st["launched"]["mtc_step_segments"] == 1
+        assert set(st["device_ms"]) >= {"sort", "segments"}
 
 
 def _payload(name):
@@ -994,7 +1039,8 @@ def test_two_rank_roundtrip_on_cuda(dev, tmp_path):
     compressor.decompress(one, one + ".reads")
     res = run_group(str(tmp_path), "g", 2, [dict(
         op="compress", fq=fq, cfg={}, out=str(tmp_path / "two.mtc"),
-        decode=str(tmp_path / "two.reads"), device="cuda:0")])
+        decode=str(tmp_path / "two.reads"), device="cuda:0")],
+        env=_cards(1))
     for r in range(2):
         launched = job_results(res, r)[0]["launched"]
         for k in ("mtc_sketch_reads", "mtc_consensus_vote",

@@ -2,9 +2,10 @@
 CPU, device="cpu"): archives byte-identical to the single-process archive of
 the port and of the JAX package, in every mode; sharded decode equal to the
 single-process decode; the collectives and the sharded read store against
-plain numpy; and two faults of the JAX package's multi-process path that the
-port repairs (checkpoint writes racing on one temporary name, and a rank
-whose FASTQ slice fails to parse leaving the others waiting); a write that
+plain numpy; and three faults of the JAX package's multi-process path that the
+port repairs (checkpoint writes racing on one temporary name, a rank
+whose FASTQ slice fails to parse leaving the others waiting, and a slice
+cut inside the first line of a record); a write that
 fails on rank 0 raising on every rank; and the CLI in a 2-rank group.
 
 Each group runs tests/_torch_dist_worker.py in subprocesses that meet
@@ -448,3 +449,39 @@ def test_cli_group_leaves_together_after_a_failed_write(tmp_path,
     assert time.monotonic() - t0 < 90
     last = _last_lines(err)
     assert last[0] == last[1] and "FileNotFoundError" in last[0]
+
+
+def _cut_headers_fastq(path):
+    """301 records of 50 bp under 301-character names: every slice edge of
+    2 and 3 ranks falls inside a name line, the first line of a record."""
+    rng = np.random.default_rng(8)
+    bases = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (301, 50))]
+    with open(path, "wb") as f:
+        for i, row in enumerate(bases):
+            name = b"@r%05d" % i + b"x" * 295
+            f.write(name + b"\n" + row.tobytes() + b"\n+\n" + b"I" * 50
+                    + b"\n")
+    size = os.path.getsize(path)
+    rec = size // 301
+    for world in (2, 3):
+        for r in range(1, world):
+            assert 0 < size * r // world % rec < 301, (world, r)
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_slices_cut_inside_a_record_start(tmp_path, world):
+    """A rank's byte slice that ends inside the first line of a record takes
+    that whole record: the ranks' rows are the file's, in order, and each
+    rank's whole matrix is the file's (the JAX package's loader asks for no
+    more lines there, and the parse fails on every rank)."""
+    from minicom_tpu_torch.io import fastq
+    fq = str(tmp_path / "cut.fastq")
+    _cut_headers_fastq(fq)
+    want = fastq.read_fastq_codes(fq)
+    _run_group(str(tmp_path), f"cut{world}", world, [dict(
+        op="fastq", fq=fq, out=str(tmp_path / "cut_{rank}.npz"))])
+    parts = [np.load(tmp_path / f"cut_{r}.npz") for r in range(world)]
+    np.testing.assert_array_equal(
+        np.concatenate([p["local"] for p in parts]), want)
+    for p in parts:
+        np.testing.assert_array_equal(p["full"], want)

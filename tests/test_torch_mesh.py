@@ -6,11 +6,16 @@ port's one-process ``cluster_step``, the JAX ``cluster_step`` and the JAX
 ``tests/_step_cases.py::mesh_cases``: uneven N, an empty shard, a rank that
 owns no segment, columns past span_cols and reads with no chosen k-mer.
 Also the row exchange (one all_to_all) against a plain all-gather of the
-rows, and bad inputs raising on every rank.
+rows, the tensor all-gather of the keys and diffs against the host
+all-gather, what each call's stats say of its exchanges (gloo, no byte
+through the host on CPU ranks), and bad inputs raising on every rank. The
+exchanges run on tensors of the exchange device, the CPU here: the same
+code that moves them between cards over NCCL where every rank owns one.
 
 One group per world size runs every case (``tests/_torch_dist_worker.py``,
-jobs "mesh", "exchange" and "mesh_errors"); the broadcasts of the output
-columns go 64 bytes a call, so that every range takes several."""
+jobs "mesh", "exchange", "allgather" and "mesh_errors"); the broadcasts of
+the output columns go 64 bytes a call, so that every range takes
+several."""
 
 import functools
 import os
@@ -60,14 +65,18 @@ def groups(tmp_path_factory):
                  out=os.path.join(tmp, f"m{world}_{{rank}}.npz")),
             dict(op="exchange",
                  out=os.path.join(tmp, f"x{world}_{{rank}}.npz")),
-            dict(op="mesh_errors")])
+            dict(op="mesh_errors"),
+            dict(op="allgather",
+                 out=os.path.join(tmp, f"g{world}_{{rank}}.npz"))])
         ranks = []
         for r in range(world):
             with np.load(os.path.join(tmp, f"m{world}_{r}.npz")) as z:
                 outs = {f: z[f] for f in z.files}
             with np.load(os.path.join(tmp, f"x{world}_{r}.npz")) as z:
                 exch = {f: z[f] for f in z.files}
-            ranks.append(dict(outs=outs, exchange=exch,
+            with np.load(os.path.join(tmp, f"g{world}_{r}.npz")) as z:
+                gath = [z[f"arr_{i}"] for i in range(len(z.files))]
+            ranks.append(dict(outs=outs, exchange=exch, gathered=gath,
                               jobs=worker.job_results(res, r)))
         out[world] = ranks
     return out
@@ -173,6 +182,34 @@ def test_bad_input_raises_on_every_rank(groups, world):
         assert r[0][0] == "GroupError" and "int64" in r[0][1]
         assert r[1][0] == "ValueError" and "[30, 29" in r[1][1]
         assert r[2][0] == "ValueError" and "k=0" in r[2][1]
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_exchanges_over_gloo_move_no_host_bytes(groups, world):
+    """Each call on CPU rows reports gloo, and every exchange (keys, rows,
+    columns, diffs; the row counts' too) moves no byte between a card and
+    the host: the rows already lie there."""
+    for name in CASES:
+        for s in _stats(groups, world, name):
+            assert s["backend"] == "gloo"
+            assert set(s["collectives"]) == {"shapes", "keys", "rows",
+                                             "columns", "diffs"}
+            assert all(c["host_B"] == 0 for c in s["collectives"].values())
+            assert s["copies"] == {"s": 0.0, "d2h_B": 0, "h2d_B": 0}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_tensor_allgather_equals_host_allgather(groups, world):
+    """``mesh._allgather`` of bool, int8, uint32 and int64 tensors with
+    ragged counts (none on the last rank) is the host all-gather, dtype
+    and all, on every rank."""
+    for rank in groups[world]:
+        got = rank["gathered"]
+        n = len(got) // 2
+        assert rank["jobs"][3]["dtypes"] == [str(g.dtype) for g in got[:n]]
+        for g, w in zip(got[:n], got[n:]):
+            assert g.dtype == w.dtype and len(w) > 0
+            np.testing.assert_array_equal(g, w)
 
 
 def test_one_process_is_cluster_step():
